@@ -1,0 +1,114 @@
+"""Local states and operators of the batched-engine slice.
+
+A jax-free copy of ``state_vector``, ``op_matrix`` and the Pauli constants
+from ``tensornetworkquantumsimulator_tpu.models.sites`` (the ITensors op /
+state registry the reference leans on).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_SQ2 = 1 / np.sqrt(2.0)
+
+_STATES_2 = {
+    "↑": [1.0, 0.0],
+    "up": [1.0, 0.0],
+    "0": [1.0, 0.0],
+    "z+": [1.0, 0.0],
+    "zp": [1.0, 0.0],
+    "↓": [0.0, 1.0],
+    "dn": [0.0, 1.0],
+    "down": [0.0, 1.0],
+    "1": [0.0, 1.0],
+    "z-": [0.0, 1.0],
+    "zm": [0.0, 1.0],
+    "x+": [_SQ2, _SQ2],
+    "+": [_SQ2, _SQ2],
+    "x-": [_SQ2, -_SQ2],
+    "-": [_SQ2, -_SQ2],
+    "y+": [_SQ2, 1j * _SQ2],
+    "i": [_SQ2, 1j * _SQ2],
+    "y-": [_SQ2, -1j * _SQ2],
+    "-i": [_SQ2, -1j * _SQ2],
+}
+
+# Heisenberg-picture Pauli sites: basis order [I, X, Y, Z]
+# (`tensornetworkstate_constructors.jl:1`)
+PAULI_BASIS_STATES = {
+    "I": [1.0, 0.0, 0.0, 0.0],
+    "X": [0.0, 1.0, 0.0, 0.0],
+    "Y": [0.0, 0.0, 1.0, 0.0],
+    "Z": [0.0, 0.0, 0.0, 1.0],
+}
+
+
+def state_vector(name: str, dim: int) -> np.ndarray:
+    if dim == 2:
+        key = name.lower() if name not in ("↑", "↓") else name
+        if key in _STATES_2:
+            return np.asarray(_STATES_2[key])
+        key2 = name.replace("X", "x").replace("Y", "y").replace("Z", "z")
+        if key2.lower() in _STATES_2:
+            return np.asarray(_STATES_2[key2.lower()])
+    if dim == 4 and name in PAULI_BASIS_STATES:
+        return np.asarray(PAULI_BASIS_STATES[name])
+    if dim == 3:
+        m = {"↑": 0, "up": 0, "z0": 1, "0": 1, "↓": 2, "dn": 2, "down": 2}
+        k = m.get(name if name in ("↑", "↓") else name.lower())
+        if k is not None:
+            vec = np.zeros(3)
+            vec[k] = 1.0
+            return vec
+    raise ValueError(f"unknown state {name!r} for site dimension {dim}")
+
+
+# ---------------------------------------------------------------------------
+# local operators
+# ---------------------------------------------------------------------------
+
+PAULI_I = np.eye(2)
+PAULI_X = np.array([[0.0, 1.0], [1.0, 0.0]])
+PAULI_Y = np.array([[0.0, -1j], [1j, 0.0]])
+PAULI_Z = np.array([[1.0, 0.0], [0.0, -1.0]])
+
+_OPS_2 = {
+    "I": PAULI_I,
+    "Id": PAULI_I,
+    "X": PAULI_X,
+    "Y": PAULI_Y,
+    "Z": PAULI_Z,
+    "H": np.array([[1.0, 1.0], [1.0, -1.0]]) * _SQ2,
+    "S": np.array([[1.0, 0.0], [0.0, 1j]]),
+    "T": np.array([[1.0, 0.0], [0.0, np.exp(1j * np.pi / 4)]]),
+    "Sx": PAULI_X / 2,
+    "Sy": PAULI_Y / 2,
+    "Sz": PAULI_Z / 2,
+    "S+": np.array([[0.0, 1.0], [0.0, 0.0]]),
+    "S-": np.array([[0.0, 0.0], [1.0, 0.0]]),
+}
+
+# spin-1 operators
+_S1_SZ = np.diag([1.0, 0.0, -1.0])
+_S1_SP = np.sqrt(2) * np.array([[0, 1.0, 0], [0, 0, 1.0], [0, 0, 0]])
+_S1_SM = _S1_SP.T
+_OPS_3 = {
+    "I": np.eye(3),
+    "Id": np.eye(3),
+    "Sz": _S1_SZ,
+    "S+": _S1_SP,
+    "S-": _S1_SM,
+    "Sx": (_S1_SP + _S1_SM) / 2,
+    "Sy": (_S1_SP - _S1_SM) / (2j),
+    "Z": _S1_SZ,
+}
+
+_OPS_4 = {"I": np.eye(4), "Id": np.eye(4)}
+
+
+def op_matrix(name: str, dim: int) -> np.ndarray:
+    """Single-site operator matrix, row index = output (primed) leg."""
+    table = {2: _OPS_2, 3: _OPS_3, 4: _OPS_4}.get(dim)
+    if table is None or name not in table:
+        raise ValueError(f"unknown operator {name!r} for site dimension {dim}")
+    return table[name]

@@ -1,0 +1,137 @@
+"""Build and load the hand-written Hopper kernels in ``csrc/``.
+
+The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``
+into one shared library with a plain ``extern "C"`` interface, which is
+loaded with :mod:`ctypes`.  The library lands in ``build/tnqs_kernels/``
+at the root of the checkout, in a directory named after a hash of the
+sources and flags, so an edit to any source rebuilds it and an unchanged
+tree reuses it.
+
+Nothing here runs at import time: the CPU tests import every module, and
+a CPU-only install has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "tnqs_kernels"
+SOURCES = ("jacobi.cu", "bp_outgoing_d3.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (every function returns cudaError_t as int)
+_SIGNATURES = {
+    # (a, w, v, batch, n, max_sweeps, stream)
+    "tnqs_jacobi_eigh": (_P, _P, _P, _I, _I, _I, _P),
+    # (a, root, inv_root, batch, n, max_sweeps, stream)
+    "tnqs_jacobi_pseudo_roots": (_P, _P, _P, _I, _I, _I, _P),
+    # (t, messages, out, scratch0, scratch1, partial, V, chi, d, splitk,
+    #  stream)
+    "tnqs_bp_outgoing_d3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None  # wall time of the build this process ran
+build_log: str = ""  # nvcc's stderr (ptxas register / shared-memory report)
+
+
+class LaunchCounter:
+    """Plain integer count of kernel launches, one per wrapper call that
+    reaches the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built with the CUDA toolkit "
+        "(put nvcc on PATH or set CUDA_HOME)"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call if needed."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = BUILD_ROOT / _source_hash()
+        so = out_dir / "libtnqs_kernels.so"
+        if not so.is_file():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            # build into a temporary name, then rename: a concurrent or
+            # interrupted build never leaves a half-written library behind
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *(str(CSRC / s) for s in SOURCES)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                    f"{proc.stderr}"
+                )
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.tnqs_error_string.argtypes = [ctypes.c_int]
+        lib.tnqs_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point on PyTorch's current stream; raise on a
+    non-zero ``cudaGetLastError`` (a refused launch never runs, and a
+    later synchronize would not report it)."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = library()
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.tnqs_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,691 @@
+"""Batched engine on PyTorch: flooding BP + batched simple update.
+
+The counterpart of ``tensornetworkquantumsimulator_tpu.parallel.engine``
+for the single-device Trotter-layer path.  It runs
+
+- synchronous ("flooding") BP: every directed message updated in one shot
+  per iteration, as one batched einsum chain over ``[V, D, χ, χ]`` tensors,
+  iterated by a Python loop with the reference's tolerance semantics
+  (`abstractbeliefpropagationcache.jl:198-222`);
+- the simple update batched over an entire edge-colour group
+  (`apply_gates.jl:95-122` + `simple_update.jl:17-68` semantics, with
+  grow-then-truncate inside a static χ buffer).
+
+Knobs, read at call time with the reference's defaults:
+``TNQS_EIGH_ALG`` ∈ {default, auto, jacobi} routes batched eighs and the
+environment roots to the Jacobi kernels (K1/K2, ``cuda_linalg``);
+``TNQS_ROOTS_FUSED`` (1) keeps the roots stage in one K1 launch;
+``TNQS_SVD_ALG`` ∈ {default, gram, jacobi, qr, polar} picks the truncated
+split; ``TNQS_QR_ALG`` ∈ {default, cholqr1, cholqr2, polar, defer} the
+QR-reduce; ``TNQS_FUSE_BUCKETS`` (1) stacks the buckets of a colour group;
+``TNQS_BP_KERNEL`` (0) routes degree-3 BP messages to K3 (``cuda_bp``).
+64-bit dtypes never take a kernel path.
+
+On a CUDA device every matmul runs in full float32 (no TF32), as the
+reference runs every einsum at ``Precision.HIGHEST``:
+:func:`tensornetworkquantumsimulator_torch.select_device` sets that.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import string
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .cuda_linalg import (
+    clip_roots,
+    eigh_plain,
+    hermitize,
+    jacobi_eigh,
+    jacobi_pseudo_roots,
+    roots_kernel_supported,
+)
+from .structure import BatchedGraphSpec
+
+_LETTERS = string.ascii_lowercase
+_JACOBI_AUTO_MAX_N = 24
+
+
+def _svd_alg() -> str:
+    return os.environ.get("TNQS_SVD_ALG", "default")
+
+
+def _is_x64(m: torch.Tensor) -> bool:
+    return m.dtype in (torch.complex128, torch.float64)
+
+
+def _use_jacobi(m: torch.Tensor) -> bool:
+    """The reference's routing rule (engine.py:74-82): ``jacobi`` always,
+    ``auto`` for n ≤ 24 on the accelerator; never for 64-bit dtypes (the
+    kernels compute in f32 and would drop ~8 digits)."""
+    alg = os.environ.get("TNQS_EIGH_ALG", "default")
+    return m.ndim >= 3 and not _is_x64(m) and (
+        alg == "jacobi"
+        or (alg == "auto" and m.shape[-1] <= _JACOBI_AUTO_MAX_N and m.is_cuda)
+    )
+
+
+def _eigh(m: torch.Tensor):
+    if _use_jacobi(m):
+        lead = m.shape[:-2]
+        w, v = jacobi_eigh(m.reshape((-1,) + m.shape[-2:]))
+        return w.reshape(lead + w.shape[-1:]), v.reshape(lead + v.shape[-2:])
+    return eigh_plain(m)
+
+
+def _ridged_cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Lower L with L L† = A†A + ridge: a relative ridge keeps the factor
+    finite when A has zero-padded bond columns (rank-deficient Gram)."""
+    gram = mat.mH @ mat
+    k = gram.shape[-1]
+    eps = torch.finfo(gram.real.dtype).eps
+    tr = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1).real
+    ridge = (10.0 * k * eps * (tr / k + eps)).to(gram.dtype)
+    eye = torch.eye(k, dtype=gram.dtype, device=gram.device)
+    gram = hermitize(gram + ridge[..., None, None] * eye)
+    # cholesky_ex: no host sync for the error check
+    ell, _ = torch.linalg.cholesky_ex(gram)
+    return ell
+
+
+def _polar_once(mat: torch.Tensor):
+    """One polar-QR pass: M = (A†A)^{1/2}, Q = A·(A†A)^{-1/2} (through
+    :func:`_pseudo_roots`, so one K1 launch on the Jacobi path)."""
+    root, inv_root = _pseudo_roots(mat.mH @ mat)
+    return mat @ inv_root, root
+
+
+def _chol_once(mat: torch.Tensor):
+    """One CholeskyQR pass: A = Q·L† from the Gram's Cholesky factor."""
+    ell = _ridged_cholesky(mat)
+    # x·L† = A
+    q = torch.linalg.solve_triangular(ell.mH, mat, upper=True, left=False)
+    return q, ell.mH
+
+
+def _qr_split(mat: torch.Tensor):
+    alg = os.environ.get("TNQS_QR_ALG", "default")
+    if alg == "cholqr1":
+        return _chol_once(mat)
+    if alg == "cholqr2":
+        q1, m1 = _chol_once(mat)
+        q, m2 = _chol_once(q1)
+        return q, m2 @ m1
+    if alg != "polar":
+        return torch.linalg.qr(mat)
+    q1, m1 = _polar_once(mat)
+    q, m2 = _polar_once(q1)
+    return q, m2 @ m1
+
+
+def _qr_reduce(mat: torch.Tensor):
+    """QR-reduce with an optionally deferred Q (``TNQS_QR_ALG=defer``).
+
+    Returns ``(q, r, deferred)``: ``deferred=False`` → ``q`` orthonormal;
+    ``deferred=True`` → ``q`` IS the input and the caller left-solves the
+    small factors against upper-triangular ``r`` (:func:`_rinv_left`)
+    before the `_su_finish` rebuild."""
+    if os.environ.get("TNQS_QR_ALG", "default") == "defer":
+        return mat, _ridged_cholesky(mat).mH, True
+    q, r = _qr_split(mat)
+    return q, r, False
+
+
+def _rinv_left(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Solve upper-triangular ``R z = x`` (the deferred-Q rebuild)."""
+    return torch.linalg.solve_triangular(r, x, upper=True, left=True)
+
+
+_SVD_DRIVERS = {"default": None, "gram": None, "polar": None,
+                "jacobi": "gesvdj", "qr": "gesvd"}
+
+
+def _svd(mat: torch.Tensor):
+    alg = _svd_alg()
+    if alg not in _SVD_DRIVERS:
+        raise ValueError(f"unknown TNQS_SVD_ALG {alg!r}")
+    # the reference's lax SVD algorithms map onto cuSOLVER drivers on CUDA
+    driver = _SVD_DRIVERS[alg] if mat.is_cuda else None
+    return torch.linalg.svd(mat, full_matrices=False, driver=driver)
+
+
+def _gram_split(mat: torch.Tensor):
+    """(U, s, V†) via one eigh of the smaller Gram matrix.  Columns of U
+    (rows of V†) for zero singular values are zeroed, not
+    orthonormalized — the truncation path multiplies them by √s = 0."""
+    n1, n2 = mat.shape[-2], mat.shape[-1]
+    h = mat.mH
+    if n2 <= n1:
+        w, v = _eigh(h @ mat)
+        w, v = w.flip(-1), v.flip(-1)  # descending
+        s = torch.sqrt(torch.clamp(w, min=0.0))
+        us = mat @ v  # = U diag(s)
+        pos = (s > 0)[..., None, :]
+        safe = torch.where(s > 0, s, torch.ones_like(s))[..., None, :]
+        uu = torch.where(pos, us / safe, torch.zeros_like(us))
+        return uu, s, v.mH
+    w, u = _eigh(mat @ h)
+    w, u = w.flip(-1), u.flip(-1)
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    sv = u.mH @ mat  # = diag(s) V†
+    pos = (s > 0)[..., :, None]
+    safe = torch.where(s > 0, s, torch.ones_like(s))[..., :, None]
+    vh = torch.where(pos, sv / safe, torch.zeros_like(sv))
+    return u, s, vh
+
+
+class BatchedState(NamedTuple):
+    """Padded vertex tensors + per-slot incoming messages."""
+
+    tensors: torch.Tensor  # [V, χ, ..., χ (D times), d]
+    messages: torch.Tensor  # [V, D, χ, χ] (ket, bra) environment matrices
+
+    @property
+    def chi(self) -> int:
+        return self.tensors.shape[1]
+
+    @property
+    def degree(self) -> int:
+        return self.tensors.ndim - 2
+
+
+class GraphTables(NamedTuple):
+    """The spec's neighbour tables as device tensors, built once."""
+
+    nbr: torch.Tensor  # [V, D] int64
+    nbr_slot: torch.Tensor  # [V, D] int64
+    mask: torch.Tensor  # [V, D] bool
+
+
+def graph_tables(spec: BatchedGraphSpec, device) -> GraphTables:
+    return GraphTables(
+        torch.as_tensor(spec.nbr_array(), dtype=torch.long, device=device),
+        torch.as_tensor(spec.nbr_slot_array(), dtype=torch.long, device=device),
+        torch.as_tensor(spec.mask_array(), dtype=torch.bool, device=device),
+    )
+
+
+def identity_messages(v: int, d: int, chi: int, dtype, device=None):
+    eye = torch.eye(chi, dtype=dtype, device=device)
+    return eye.expand(v, d, chi, chi).clone()
+
+
+def _absorb(t: torch.Tensor, m: torch.Tensor, axis: int) -> torch.Tensor:
+    """Σ_l t[..., l, ...] m[v, l, l'] along the given axis (batched on v)."""
+    t2 = torch.movedim(t, axis, -1)
+    out = torch.einsum("v...l,vlm->v...m", t2, m)
+    return torch.movedim(out, -1, axis)
+
+
+# ---------------------------------------------------------------------------
+# flooding BP
+# ---------------------------------------------------------------------------
+
+
+def _all_except_one(t, messages, slots):
+    """[t with every slot's message absorbed except slot j, for j in slots];
+    a binary split reuses the shared half (D·log₂D absorbs)."""
+    if len(slots) == 1:
+        return [t]
+    mid = len(slots) // 2
+    left, right = slots[:mid], slots[mid:]
+    t_right_absorbed = t
+    for k in right:
+        t_right_absorbed = _absorb(t_right_absorbed, messages[:, k], 1 + k)
+    t_left_absorbed = t
+    for k in left:
+        t_left_absorbed = _absorb(t_left_absorbed, messages[:, k], 1 + k)
+    return _all_except_one(t_right_absorbed, messages, left) + _all_except_one(
+        t_left_absorbed, messages, right
+    )
+
+
+def outgoing_messages_einsum(t: torch.Tensor, messages: torch.Tensor):
+    """m_out[u, j] by the op-level chain: all incoming messages but slot
+    j's absorbed, contracted with conj(t) over every other leg."""
+    D = t.ndim - 2
+    accs = _all_except_one(t, messages, list(range(D)))
+    tconj = t.conj()
+    outs = []
+    for j, acc in zip(range(D), accs):
+        lab = [_LETTERS[k] for k in range(D)]
+        acc_lab = list(lab)
+        acc_lab[j] = "p"  # outgoing ket leg
+        conj_lab = list(lab)
+        conj_lab[j] = "q"  # outgoing bra leg
+        eq = f"v{''.join(acc_lab)}s,v{''.join(conj_lab)}s->vpq"
+        outs.append(torch.einsum(eq, acc, tconj))
+    return torch.stack(outs, dim=1)  # [V, D, χ, χ]
+
+
+def _outgoing_messages(state: BatchedState) -> torch.Tensor:
+    """m_out[u, j]: message u sends through slot j
+    (`abstractbeliefpropagationcache.jl:144-177`, batched).
+    ``TNQS_BP_KERNEL=1`` routes degree-3 states with equal bond legs
+    through the K3 CUDA kernel chain (``cuda_bp.bp_outgoing_d3``)."""
+    t = state.tensors
+    D = t.ndim - 2
+    if os.environ.get("TNQS_BP_KERNEL", "0") == "1" and D == 3:
+        from .cuda_bp import bp_kernel_supported, bp_outgoing_d3
+
+        chi, d = t.shape[1], t.shape[-1]
+        if bp_kernel_supported(D, chi, d, t.dtype, t.shape[0]) and all(
+            s == chi for s in t.shape[1:4]
+        ):
+            return bp_outgoing_d3(t, state.messages)
+    return outgoing_messages_einsum(t, state.messages)
+
+
+def _normalize_messages(m, mask, hermitize_: bool = True):
+    """Hermitize + divide by the entry sum (`abstractbeliefpropagationcache.
+    jl:164-172`); dummy slots pinned to the identity."""
+    if hermitize_:
+        m = hermitize(m)
+    s = m.sum(dim=(-2, -1), keepdim=True)
+    safe = torch.where(s.abs() == 0, torch.ones_like(s), s)
+    m = m / safe
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    return torch.where(mask[..., None, None], m, eye)
+
+
+def bp_iteration(spec: BatchedGraphSpec, state: BatchedState,
+                 tables: GraphTables | None = None) -> torch.Tensor:
+    """One synchronous sweep: every directed message updated at once."""
+    if tables is None:
+        tables = graph_tables(spec, state.tensors.device)
+    m_out = _outgoing_messages(state)
+    # the message INTO v through slot k was sent by nbr[v,k] via nbr_slot[v,k]
+    gathered = m_out[tables.nbr, tables.nbr_slot]  # [V, D, χ, χ]
+    return _normalize_messages(gathered, tables.mask)
+
+
+def _message_distance(a, b, mask):
+    """Mean per-edge fidelity distance (`beliefpropagationcache.jl:15-19`)."""
+    dot = (a.conj() * b).sum(dim=(-2, -1))
+    na = torch.linalg.vector_norm(a.flatten(-2), dim=-1)
+    nb = torch.linalg.vector_norm(b.flatten(-2), dim=-1)
+    nn = na * nb
+    denom = torch.where(nn == 0, torch.ones_like(nn), nn)
+    f = (dot / denom).abs() ** 2
+    d = torch.where(mask, 1.0 - f, torch.zeros_like(f))
+    return d.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def default_batched_tolerance(dtype) -> float:
+    if dtype in (torch.float32, torch.complex64):
+        return 1e-5
+    return 1e-8
+
+
+def bp_update(
+    spec: BatchedGraphSpec,
+    state: BatchedState,
+    maxiter: int = 30,
+    tolerance: float | None = None,
+    damping: float = 0.0,
+    tables: GraphTables | None = None,
+) -> BatchedState:
+    """Flooding BP to the fixed point (tolerance on the mean message change,
+    `abstractbeliefpropagationcache.jl:198-222`).
+
+    The reference's ``lax.while_loop`` becomes a Python loop with the same
+    semantics (at most ``maxiter`` sweeps while the distance exceeds the
+    tolerance).  Reading the distance syncs the host with the device once
+    per iteration: a design choice of this port, whose cost is for a
+    later measurement."""
+    if tolerance is None:
+        tolerance = default_batched_tolerance(state.tensors.dtype)
+    if tables is None:
+        tables = graph_tables(spec, state.tensors.device)
+    m = state.messages
+    it, diff = 0, math.inf
+    while it < maxiter and diff > tolerance:
+        new = bp_iteration(spec, state._replace(messages=m), tables)
+        if damping > 0:
+            new = _normalize_messages(
+                (1 - damping) * new + damping * m, tables.mask, hermitize_=False
+            )
+        diff = float(_message_distance(m, new, tables.mask))
+        m, it = new, it + 1
+    return state._replace(messages=m)
+
+
+# ---------------------------------------------------------------------------
+# environment roots
+# ---------------------------------------------------------------------------
+
+
+def _pseudo_roots(m: torch.Tensor):
+    """(√M, 1/√M) of hermitian environment batches with cutoff zeroing
+    (`utils.jl:18-26`, batched); padded/dummy directions stay exactly zero.
+
+    On the Jacobi path the whole stage runs as one K1 launch
+    (``cuda_linalg.jacobi_pseudo_roots``) when its shape gate admits n;
+    ``TNQS_ROOTS_FUSED=0`` keeps the K2 eigh + PyTorch reconstruction."""
+    m = hermitize(m)
+    n = m.shape[-1]
+    if _use_jacobi(m) and os.environ.get("TNQS_ROOTS_FUSED", "1") != "0":
+        flat = m.reshape((-1,) + m.shape[-2:])
+        if roots_kernel_supported(n, flat.shape[0]):
+            root, inv_root = jacobi_pseudo_roots(flat)
+            return root.reshape(m.shape), inv_root.reshape(m.shape)
+    return clip_roots(*_eigh(m))
+
+
+# ---------------------------------------------------------------------------
+# batched simple update
+# ---------------------------------------------------------------------------
+
+
+def _index(idx, device) -> torch.Tensor:
+    """Bucket indices as a device tensor (already one, or a static tuple)."""
+    if isinstance(idx, torch.Tensor):
+        return idx
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+def _gate_bucket_update(state, gate, u_idx, v_idx, slot_u, slot_v, chi,
+                        cutoff, normalize_tensors):
+    """Simple update batched over all edges of one (slot_u, slot_v) bucket
+    (`simple_update.jl:17-68`): gather endpoints, run the update core,
+    write back; the kept spectrum becomes the new edge message
+    (`apply_gates.jl:108-115`)."""
+    tu_new, tv_new, msg, err = _simple_update_core(
+        state.tensors[u_idx], state.tensors[v_idx],
+        state.messages[u_idx], state.messages[v_idx],
+        gate, slot_u, slot_v, chi, cutoff, normalize_tensors,
+    )
+    tensors = state.tensors.clone()
+    messages = state.messages.clone()
+    _write_back(tensors, messages, u_idx, v_idx, slot_u, slot_v,
+                tu_new, tv_new, msg)
+    return BatchedState(tensors, messages), err
+
+
+def _write_back(tensors, messages, u_idx, v_idx, slot_u, slot_v,
+                tu_new, tv_new, msg):
+    """In-place row writes into the layer's own copies (indices are unique
+    within a bucket)."""
+    tensors.index_copy_(0, u_idx, tu_new.to(tensors.dtype))
+    tensors.index_copy_(0, v_idx, tv_new.to(tensors.dtype))
+    messages[u_idx, slot_u] = msg.to(messages.dtype)
+    messages[v_idx, slot_v] = msg.to(messages.dtype)
+
+
+def _theta(ru, rv, gate):
+    """θ = gate · (Rᵤ Rᵥ) over the shared bond, matricized [B, r1·d, r2·d]."""
+    theta = torch.einsum("bxlc,bylz->bxcyz", ru, rv)
+    g = gate.to(theta.dtype)
+    if g.ndim == 4:
+        theta = torch.einsum("bxcyz,pqcz->bxpyq", theta, g)
+    else:
+        theta = torch.einsum("bxcyz,bpqcz->bxpyq", theta, g)
+    B, r1, d, r2, _ = theta.shape
+    return theta.reshape(B, r1 * d, r2 * d), r1, r2
+
+
+def _normalize_rows(t: torch.Tensor) -> torch.Tensor:
+    n = torch.linalg.vector_norm(t.reshape(t.shape[0], -1), dim=-1)
+    n = torch.where(n == 0, torch.ones_like(n), n)
+    return t / n.reshape((-1,) + (1,) * (t.ndim - 1)).to(t.dtype)
+
+
+def _edge_message(s_kept, normalize_tensors, dtype):
+    if normalize_tensors:
+        s_norm = torch.linalg.vector_norm(s_kept, dim=-1, keepdim=True)
+        s_kept = s_kept / torch.where(s_norm == 0, torch.ones_like(s_norm),
+                                      s_norm)
+    return torch.diag_embed(s_kept).to(dtype)
+
+
+def _simple_update_core(tu, tv, mu, mv, gate, slot_u, slot_v, chi, cutoff,
+                        normalize_tensors):
+    """The batched simple-update kernel on gathered endpoint data: absorb
+    √env → QR-reduce → gate → truncated split into the static χ buffer →
+    restore with 1/√env.  Returns ``(tu_new, tv_new, message, err)``."""
+    D = tu.ndim - 2
+    d = tu.shape[-1]
+    env = torch.stack(
+        [mu[:, k] for k in range(D) if k != slot_u]
+        + [mv[:, k] for k in range(D) if k != slot_v], dim=0,
+    )  # [2(D-1), B, χ, χ]
+    roots, inv_roots = _pseudo_roots(env)
+
+    tp_u = _su_prep(tu, slot_u, roots[: D - 1], chi, d)
+    tp_v = _su_prep(tv, slot_v, roots[D - 1:], chi, d)
+    B = tp_u.shape[0]
+    q_all, r_all, deferred = _qr_reduce(torch.cat([tp_u, tp_v], dim=0))
+    ru = r_all[:B].reshape(B, -1, chi, d)
+    rv = r_all[B:].reshape(B, -1, chi, d)
+    mat, r1, r2 = _theta(ru, rv, gate)
+    x, y, s_kept, err = _su_split(mat, chi, d, cutoff)
+
+    fac_u = x.reshape(B, r1, d, chi)
+    fac_v = y.transpose(1, 2).reshape(B, r2, d, chi)
+    if deferred:  # q is the raw tall matrix; undo R on the factor
+        fac_u = _rinv_left(r_all[:B], fac_u.reshape(B, r1, d * chi)
+                           ).reshape(B, r1, d, chi)
+        fac_v = _rinv_left(r_all[B:], fac_v.reshape(B, r2, d * chi)
+                           ).reshape(B, r2, d, chi)
+    tu_new = _su_finish(q_all[:B], fac_u, inv_roots[: D - 1], slot_u, tu,
+                        chi, d)
+    tv_new = _su_finish(q_all[B:], fac_v, inv_roots[D - 1:], slot_v, tv,
+                        chi, d)
+    msg = _edge_message(s_kept, normalize_tensors, mat.dtype)
+    if normalize_tensors:
+        tu_new, tv_new = _normalize_rows(tu_new), _normalize_rows(tv_new)
+    return tu_new, tv_new, msg, err
+
+
+def apply_one_site(state: BatchedState, gate: torch.Tensor,
+                   idx=None) -> BatchedState:
+    """Batched 1-site gates: gate [d', d] broadcast over vertices, or
+    [V, d', d] per vertex; with ``idx``, [B, d', d] at those positions."""
+    g = gate.to(state.tensors.dtype)
+    eq = "v...d,pd->v...p" if g.ndim == 2 else "v...d,vpd->v...p"
+    if idx is None:
+        return state._replace(tensors=torch.einsum(eq, state.tensors, g))
+    idx = _index(idx, state.tensors.device)
+    sub = torch.einsum(eq, state.tensors[idx], g)
+    return state._replace(tensors=state.tensors.index_copy(0, idx, sub))
+
+
+def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
+                      chi: int, cutoff: float, normalize_tensors: bool = True):
+    """Apply one 2-site gate to every edge of a colour group
+    (`2dIsing_dynamics.jl:25-28`, batched).  All slot-pair buckets of the
+    group share ONE stacked eigh, ONE stacked QR and ONE stacked split;
+    ``TNQS_FUSE_BUCKETS=0`` (or a single bucket) runs per-bucket updates.
+    Bucket indices may be static tuples or device tensors."""
+    buckets = list(buckets)
+    if not buckets:
+        return state, torch.zeros((0,), device=state.tensors.device)
+    if os.environ.get("TNQS_FUSE_BUCKETS", "1") == "0" or len(buckets) == 1:
+        errs = []
+        dev = state.tensors.device
+        for b in buckets:
+            state, err = _gate_bucket_update(
+                state, gate, _index(b.u_idx, dev), _index(b.v_idx, dev),
+                b.slot_u, b.slot_v, chi, cutoff, normalize_tensors,
+            )
+            errs.append(err)
+        return state, torch.cat(errs)
+    return _fused_color_group(state, buckets, gate, chi, cutoff,
+                              normalize_tensors)
+
+
+def _su_prep(t, slot, roots_slice, chi, d):
+    """Absorb √env on the non-gate legs and matricize to [B, M, χ·d]."""
+    D = t.ndim - 2
+    for i, k in enumerate(k for k in range(D) if k != slot):
+        t = _absorb(t, roots_slice[i], 1 + k)
+    perm = [0] + [1 + k for k in range(D) if k != slot] + [1 + slot, D + 1]
+    tp = t.permute(perm)
+    M = int(np.prod(tp.shape[1:D]))
+    return tp.reshape(tp.shape[0], M, chi * d)
+
+
+def _su_split(mat, chi, d, cutoff):
+    """Truncated split of the gated two-site matrix [B, r1·d, r2·d]:
+    relative discarded Σσ² ≤ cutoff, cap χ, inside the static buffer.
+    Returns (x [B, r1·d, χ], y [B, χ, r2·d], s_kept [B, χ], err [B])."""
+    if _svd_alg() == "gram":
+        uu, s, vh = _gram_split(mat)
+    else:
+        uu, s, vh = _svd(mat)
+    p = s * s
+    total = p.sum(-1, keepdim=True)
+    safe_total = torch.where(total == 0, torch.ones_like(total), total)
+    tail = torch.flip(torch.cumsum(torch.flip(p, [-1]), -1), [-1])
+    keep = (tail / safe_total > cutoff).clone()
+    keep[..., 0] = True
+    keep &= torch.arange(s.shape[-1], device=s.device)[None, :] < chi
+    err = torch.where(keep, torch.zeros_like(p), p).sum(-1) / safe_total[:, 0]
+    k = min(chi, s.shape[-1])
+    s_kept = torch.where(keep, s, torch.zeros_like(s))[..., :k]
+    uu = uu[..., :k]
+    vh = vh[..., :k, :]
+    if k < chi:  # bond smaller than the buffer: zero-pad
+        B, padn = s.shape[0], chi - k
+        s_kept = torch.cat([s_kept, s_kept.new_zeros(B, padn)], dim=-1)
+        uu = torch.cat([uu, uu.new_zeros(B, uu.shape[1], padn)], dim=-1)
+        vh = torch.cat([vh, vh.new_zeros(B, padn, vh.shape[2])], dim=-2)
+    sqrt_s = torch.sqrt(s_kept).to(mat.dtype)
+    return uu * sqrt_s[:, None, :], sqrt_s[:, :, None] * vh, s_kept, err
+
+
+def _su_finish(q, fac, inv_roots, slot, t_ref, chi, d):
+    """Rebuild the site tensor: Q·factor, undo the transpose, absorb 1/√env."""
+    D = t_ref.ndim - 2
+    B = q.shape[0]
+    t = q @ fac.reshape(B, fac.shape[1], d * chi)  # [B, M, d·χ]
+    other = [t_ref.shape[1 + kk] for kk in range(D) if kk != slot]
+    t = t.reshape((B,) + tuple(other) + (d, chi))
+    t = torch.movedim(t, -1, -2)  # [..., χ(slot), d]
+    order = [kk for kk in range(D) if kk != slot] + [slot]
+    inv_perm = [0] + [1 + order.index(kk) for kk in range(D)] + [D + 1]
+    t = t.permute(inv_perm)
+    it = iter(inv_roots)
+    for kk in range(D):
+        if kk == slot:
+            continue
+        # inv_root is hermitian: contracting the bra leg with it equals
+        # the reference's dag(inv_sqrt_env) contraction
+        t = _absorb(t, next(it), 1 + kk)
+    return t
+
+
+def _fused_group_core(state, items, gate, chi, cutoff, normalize_tensors):
+    """Shared fused-colour-group math on pre-gathered endpoint data.
+
+    ``items``: list of ``(slot_u, slot_v, tu, tv, mu, mv)`` per bucket.
+    Runs ONE stacked roots stage, ONE stacked QR and ONE stacked split
+    across all buckets; returns ``[(tu_new, tv_new, msg, err)]`` in bucket
+    order."""
+    D = state.degree
+    d = state.tensors.shape[-1]
+    envs = [
+        torch.stack([mu[:, k] for k in range(D) if k != su]
+                    + [mv[:, k] for k in range(D) if k != sv], dim=0)
+        for (su, sv, _tu, _tv, mu, mv) in items
+    ]  # each [2(D-1), B_b, χ, χ]
+    sizes = [e.shape[1] for e in envs]
+    offs = np.cumsum([0] + sizes)
+    roots_all, inv_roots_all = _pseudo_roots(torch.cat(envs, dim=1))
+
+    tps = []
+    for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
+        roots = roots_all[:, offs[i]: offs[i + 1]]
+        tps += [_su_prep(tu, su, roots[: D - 1], chi, d),
+                _su_prep(tv, sv, roots[D - 1:], chi, d)]
+    q_all, r_all, deferred = _qr_reduce(torch.cat(tps, dim=0))
+
+    mats, shapes = [], []
+    for i, B in enumerate(sizes):
+        off = 2 * offs[i]
+        ru = r_all[off: off + B].reshape(B, -1, chi, d)
+        rv = r_all[off + B: off + 2 * B].reshape(B, -1, chi, d)
+        mat, r1, r2 = _theta(ru, rv, gate)
+        mats.append(mat)
+        shapes.append((r1, r2))
+    x_all, y_all, s_all, err_all = _su_split(torch.cat(mats, dim=0), chi, d,
+                                             cutoff)
+
+    results = []
+    for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
+        B, off, (r1, r2) = sizes[i], offs[i], shapes[i]
+        sl = slice(off, off + B)
+        inv_roots = inv_roots_all[:, sl]
+        q_u, q_v = q_all[2 * off: 2 * off + B], q_all[2 * off + B: 2 * off + 2 * B]
+        fac_u = x_all[sl].reshape(B, r1, d, chi)
+        fac_v = y_all[sl].transpose(1, 2).reshape(B, r2, d, chi)
+        if deferred:  # q is the raw tall matrix; undo R on the factor
+            r_u = r_all[2 * off: 2 * off + B]
+            r_v = r_all[2 * off + B: 2 * off + 2 * B]
+            fac_u = _rinv_left(r_u, fac_u.reshape(B, r1, d * chi)
+                               ).reshape(B, r1, d, chi)
+            fac_v = _rinv_left(r_v, fac_v.reshape(B, r2, d * chi)
+                               ).reshape(B, r2, d, chi)
+        tu_new = _su_finish(q_u, fac_u, inv_roots[: D - 1], su, tu, chi, d)
+        tv_new = _su_finish(q_v, fac_v, inv_roots[D - 1:], sv, tv, chi, d)
+        msg = _edge_message(s_all[sl], normalize_tensors, state.messages.dtype)
+        if normalize_tensors:
+            tu_new, tv_new = _normalize_rows(tu_new), _normalize_rows(tv_new)
+        results.append((tu_new, tv_new, msg, err_all[sl]))
+    return results
+
+
+def _fused_color_group(state, buckets, gate, chi, cutoff, normalize_tensors):
+    """One stacked roots/QR/split across every bucket of the colour group.
+    The group writes into one copy of the state, in place."""
+    dev = state.tensors.device
+    items, idxs = [], []
+    for b in buckets:
+        u_idx, v_idx = _index(b.u_idx, dev), _index(b.v_idx, dev)
+        items.append((
+            b.slot_u, b.slot_v,
+            state.tensors[u_idx], state.tensors[v_idx],
+            state.messages[u_idx], state.messages[v_idx],
+        ))
+        idxs.append((u_idx, v_idx))
+    results = _fused_group_core(state, items, gate, chi, cutoff,
+                                normalize_tensors)
+    tensors = state.tensors.clone()
+    messages = state.messages.clone()
+    errs = []
+    for b, (u_idx, v_idx), (tu_new, tv_new, msg, err) in zip(
+        buckets, idxs, results
+    ):
+        _write_back(tensors, messages, u_idx, v_idx, b.slot_u, b.slot_v,
+                    tu_new, tv_new, msg)
+        errs.append(err)
+    return BatchedState(tensors, messages), torch.cat(errs)
+
+
+# ---------------------------------------------------------------------------
+# batched local expectation values
+# ---------------------------------------------------------------------------
+
+
+def local_rdms(spec: BatchedGraphSpec, state: BatchedState) -> torch.Tensor:
+    """Unnormalized 1-site RDMs ρ[v, s, s'] from the BP environments."""
+    D = spec.degree
+    acc = state.tensors
+    for k in range(D):
+        acc = _absorb(acc, state.messages[:, k], 1 + k)
+    lab = "".join(_LETTERS[k] for k in range(D))
+    return torch.einsum(f"v{lab}s,v{lab}z->vsz", acc, state.tensors.conj())
+
+
+def local_expectations(spec: BatchedGraphSpec, state: BatchedState,
+                       op) -> torch.Tensor:
+    """⟨op⟩ for every vertex (single-site observables, `expect.jl:58-83`)."""
+    rho = local_rdms(spec, state)  # [V, s(ket), z(bra)]
+    op = torch.as_tensor(op).to(dtype=rho.dtype, device=rho.device)
+    numer = torch.einsum("vsz,zs->v", rho, op)
+    denom = torch.einsum("vss->v", rho)
+    return numer / denom

@@ -1,0 +1,282 @@
+"""Named graphs and the proper edge colouring the batched engine needs.
+
+A jax-free copy of the slice of ``tensornetworkquantumsimulator_tpu.utils.
+graphs`` that the Trotter-layer path uses: :class:`NamedEdge`,
+:class:`NamedGraph` and :func:`edge_color` with its colouring helpers.  The
+colourings are the reference's own algorithms, so the port compiles the
+same slot tables and colour groups as the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Hashable, Iterable
+
+import networkx as nx
+
+@dataclass(frozen=True)
+class NamedEdge:
+    """A directed edge (messages live on directed edges)."""
+
+    src: Hashable
+    dst: Hashable
+
+    def __repr__(self):
+        return f"{self.src}=>{self.dst}"
+
+    def __iter__(self):
+        return iter((self.src, self.dst))
+
+
+class NamedGraph:
+    """Undirected graph with insertion-ordered vertices/edges (the subset of
+    the reference's NamedGraphs.jl surface that lattice construction and
+    edge colouring use)."""
+
+    def __init__(self, vertices: Iterable = (), edges: Iterable = ()):
+        self._g = nx.Graph()
+        for v in vertices:
+            self._g.add_node(v)
+        for e in edges:
+            self.add_edge_inplace(e)
+
+    @classmethod
+    def _wrap(cls, g: nx.Graph) -> "NamedGraph":
+        out = cls()
+        out._g = g
+        return out
+
+    def nx(self) -> nx.Graph:
+        return self._g
+
+    def copy(self) -> "NamedGraph":
+        return NamedGraph._wrap(self._g.copy())
+
+    def vertices(self) -> list:
+        return list(self._g.nodes)
+
+    def edges(self) -> list:
+        return [NamedEdge(u, v) for u, v in self._g.edges]
+
+    def nv(self) -> int:
+        return self._g.number_of_nodes()
+
+    def ne(self) -> int:
+        return self._g.number_of_edges()
+
+    def has_vertex(self, v) -> bool:
+        return v in self._g
+
+    def has_edge(self, e) -> bool:
+        u, v = (e.src, e.dst) if isinstance(e, NamedEdge) else e
+        return self._g.has_edge(u, v)
+
+    def neighbors(self, v) -> list:
+        return list(self._g.neighbors(v))
+
+    def max_degree(self) -> int:
+        return max((d for _, d in self._g.degree), default=0)
+
+    def add_vertex_inplace(self, v):
+        self._g.add_node(v)
+        return self
+
+    def add_edge_inplace(self, e, v=None):
+        if v is not None:
+            e = NamedEdge(e, v)
+        u, w = (e.src, e.dst) if isinstance(e, NamedEdge) else e
+        self._g.add_edge(u, w)
+        return self
+
+    def rem_edge_inplace(self, e):
+        u, v = (e.src, e.dst) if isinstance(e, NamedEdge) else e
+        self._g.remove_edge(u, v)
+        return self
+
+    def rename_vertices(self, f) -> "NamedGraph":
+        return NamedGraph._wrap(nx.relabel_nodes(self._g, {v: f(v) for v in self._g}))
+
+    def __eq__(self, other):
+        if not isinstance(other, NamedGraph):
+            return NotImplemented
+        return set(self._g.nodes) == set(other._g.nodes) and {
+            frozenset(e) for e in self._g.edges
+        } == {frozenset(e) for e in other._g.edges}
+
+    def __repr__(self):
+        return f"NamedGraph({self.nv()} vertices, {self.ne()} edges)"
+
+
+# ---------------------------------------------------------------------------
+# edge colouring
+# ---------------------------------------------------------------------------
+
+
+def edge_color(g: NamedGraph, num_colors: int | None = None) -> list:
+    """Proper edge coloring, returned as groups of edges per color.
+
+    The Trotterization grouping primitive (reference re-exports
+    SimpleGraphAlgorithms.edge_color; used in every example and in
+    `truncate.jl:19-20`).  Bipartite graphs get an exact Δ-coloring via
+    König/matching; general graphs get Vizing Δ+1 via Misra–Gries.
+    """
+    delta = g.max_degree()
+    if g.ne() == 0:
+        return []
+    if nx.is_bipartite(g.nx()):
+        groups = _bipartite_edge_color(g)
+    else:
+        budget = max(delta + 1, num_colors or 0)
+        groups = _kempe_edge_color(g, budget)
+    if num_colors is not None and len(groups) > num_colors:
+        raise ValueError(
+            f"edge coloring needs {len(groups)} colors, {num_colors} requested"
+        )
+    _assert_proper(g, groups)
+    return groups
+
+
+def _assert_proper(g: NamedGraph, groups):
+    total = 0
+    for group in groups:
+        seen = set()
+        for e in group:
+            assert e.src not in seen and e.dst not in seen, "improper edge coloring"
+            seen.update((e.src, e.dst))
+        total += len(group)
+    assert total == g.ne(), "edge coloring misses edges"
+
+
+def _bipartite_edge_color(g: NamedGraph) -> list:
+    """Exact Δ-edge-coloring of a bipartite graph (König): pad to a
+    Δ-regular bipartite multigraph and peel perfect matchings."""
+    delta = g.max_degree()
+    # per-component 2-coloring: nx.bipartite.sets raises on disconnected
+    # graphs (e.g. a shard-padded lattice with inert isolated vertices)
+    left_set: set = set()
+    right_set: set = set()
+    nxg = g.nx()
+    for comp in nx.connected_components(nxg):
+        if len(comp) == 1:
+            continue  # isolated vertex touches no edge
+        lc, rc = nx.bipartite.sets(nxg.subgraph(comp))
+        left_set |= lc
+        right_set |= rc
+    left, right = sorted(left_set, key=str), sorted(right_set, key=str)
+    n = max(len(left), len(right))
+    # build bipartite multigraph adjacency with dummy vertices/edges
+    lnodes = [("L", v) for v in left] + [("Ld", i) for i in range(n - len(left))]
+    rnodes = [("R", v) for v in right] + [("Rd", i) for i in range(n - len(right))]
+    mg = nx.MultiGraph()
+    mg.add_nodes_from(lnodes, bipartite=0)
+    mg.add_nodes_from(rnodes, bipartite=1)
+    for u, v in g.nx().edges:
+        lu = ("L", u) if u in left_set else ("L", v)
+        rv = ("R", v) if v in right_set else ("R", u)
+        mg.add_edge(lu, rv, real=(u, v))
+    # pad to Δ-regular: greedily connect deficient pairs
+    ldeg = {u: mg.degree(u) for u in lnodes}
+    rdeg = {u: mg.degree(u) for u in rnodes}
+    li, ri = 0, 0
+    lqueue = [u for u in lnodes for _ in range(delta - ldeg[u])]
+    rqueue = [u for u in rnodes for _ in range(delta - rdeg[u])]
+    for lu, rv in zip(lqueue, rqueue):
+        mg.add_edge(lu, rv, real=None)
+    groups = []
+    for _ in range(delta):
+        # perfect matching on the simple graph view with multiplicities
+        sg = nx.Graph()
+        sg.add_nodes_from(lnodes, bipartite=0)
+        sg.add_nodes_from(rnodes, bipartite=1)
+        keymap = {}
+        for u, v, k in mg.edges(keys=True):
+            lu, rv = (u, v) if u[0].startswith("L") else (v, u)
+            if not sg.has_edge(lu, rv):
+                sg.add_edge(lu, rv)
+                keymap[(lu, rv)] = k
+        matching = nx.bipartite.hopcroft_karp_matching(sg, top_nodes=lnodes)
+        group = []
+        for lu in lnodes:
+            rv = matching[lu]
+            k = keymap[(lu, rv)]
+            real = mg.edges[lu, rv, k]["real"]
+            if real is not None:
+                group.append(NamedEdge(*real))
+            mg.remove_edge(lu, rv, key=k)
+        if group:
+            groups.append(group)
+    return groups
+
+
+def _kempe_edge_color(g: NamedGraph, ncolors: int) -> list:
+    """Greedy edge coloring with Kempe-chain repair, randomized restarts,
+    escalating the budget if needed (always terminates; budget 2Δ-1 is
+    trivially sufficient for greedy)."""
+    import random as _random
+
+    def attempt(ncol, seed):
+        rng = _random.Random(seed)
+        edges_list = [tuple(e) for e in g.edges()]
+        rng.shuffle(edges_list)
+        color = {}  # frozenset -> color
+
+        def colors_at(u):
+            return {
+                color[frozenset((u, w))]
+                for w in g.nx().neighbors(u)
+                if frozenset((u, w)) in color
+            }
+
+        for (u, v) in edges_list:
+            free_u = [c for c in range(ncol) if c not in colors_at(u)]
+            free_v = set(c for c in range(ncol) if c not in colors_at(v))
+            both = [c for c in free_u if c in free_v]
+            if both:
+                color[frozenset((u, v))] = both[0]
+                continue
+            # Kempe-chain repair: invert an (a,b)-chain from v for some
+            # a free at u, b free at v; succeeds unless the chain ends at u.
+            done = False
+            for a in free_u:
+                for b in free_v:
+                    chain = []
+                    node, want = v, a
+                    ok = True
+                    while True:
+                        nxt = None
+                        for w in g.nx().neighbors(node):
+                            if color.get(frozenset((node, w))) == want:
+                                nxt = w
+                                break
+                        if nxt is None:
+                            break
+                        chain.append(frozenset((node, nxt)))
+                        node = nxt
+                        want = b if want == a else a
+                        if node == u:
+                            ok = False
+                            break
+                    if ok:
+                        for ek in chain:
+                            color[ek] = b if color[ek] == a else a
+                        color[frozenset((u, v))] = a
+                        done = True
+                        break
+                if done:
+                    break
+            if not done:
+                return None
+        return color
+
+    delta = g.max_degree()
+    budget = ncolors
+    while True:
+        for seed in range(40):
+            color = attempt(budget, seed)
+            if color is not None:
+                groups = [[] for _ in range(budget)]
+                for u, v in g.nx().edges:
+                    groups[color[frozenset((u, v))]].append(NamedEdge(u, v))
+                return [grp for grp in groups if grp]
+        budget += 1
+

@@ -1,0 +1,125 @@
+"""Lattice constructors of the batched-engine slice.
+
+A jax-free copy of ``named_grid``, ``heavy_hexagonal_lattice``,
+``ibm_eagle_lattice`` and ``_gate_vertices`` from
+``tensornetworkquantumsimulator_tpu.utils.lattices`` (the reference's
+`graph_ops.jl` geometry).  Vertex naming follows the JAX package exactly, so
+both packages compile the same slot tables.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import networkx as nx
+
+from .graphs import NamedEdge, NamedGraph
+
+
+def named_grid(dims, periodic=False) -> NamedGraph:
+    """n-dimensional grid with 1-based tuple vertices; `periodic=True` wraps
+    every axis (used for 3-d tori, `examples/3dIsing_dynamics.jl:8`).
+    ``periodic`` may also be a per-axis tuple, e.g. ``(True, False)`` for a
+    cylinder — rows then form the ring partition graph the boundary-MPS
+    cache accepts (`boundarympscache.jl:66-78`)."""
+    if isinstance(dims, int):
+        dims = (dims,)
+    dims = tuple(dims)
+    if isinstance(periodic, bool):
+        periodic = (periodic,) * len(dims)
+    periodic = tuple(periodic)
+    if len(periodic) != len(dims):
+        raise ValueError("periodic must be a bool or one flag per axis")
+    ranges = [range(1, d + 1) for d in dims]
+    vertices = list(itertools.product(*ranges))
+    g = NamedGraph(vertices)
+    for v in vertices:
+        for axis, d in enumerate(dims):
+            if v[axis] < d:
+                w = list(v)
+                w[axis] += 1
+                g.add_edge_inplace(NamedEdge(v, tuple(w)))
+            elif periodic[axis] and d > 2:
+                w = list(v)
+                w[axis] = 1
+                g.add_edge_inplace(NamedEdge(v, tuple(w)))
+    if len(dims) >= 2 and all(d == 1 for d in dims[1:]):
+        # named_grid((n, 1)) keeps tuple names in the reference; only a true
+        # 1-d spec collapses to integers
+        return g
+    if len(dims) == 1:
+        return g.rename_vertices(lambda v: v[0])
+    return g
+
+
+def named_hexagonal_lattice_graph(m: int, n: int) -> NamedGraph:
+    """Hexagonal (honeycomb) lattice with m x n hexagons, matching
+    NamedGraphs.jl's construction (networkx `hexagonal_lattice_graph` with
+    1-based coordinate names)."""
+    h = nx.hexagonal_lattice_graph(m, n)
+    h = nx.relabel_nodes(h, {v: (v[0] + 1, v[1] + 1) for v in h.nodes})
+    g = NamedGraph()
+    for v in sorted(h.nodes):
+        g.add_vertex_inplace(v)
+    for u, v in sorted(h.edges):
+        g.add_edge_inplace(NamedEdge(u, v))
+    return g
+
+
+def heavy_hexagonal_lattice(nx_: int, ny_: int) -> NamedGraph:
+    """IBM-style heavy-hex: hexagonal lattice with a degree-2 vertex inserted
+    on every edge (`graph_ops.jl:6-18`)."""
+    g = named_hexagonal_lattice_graph(nx_, ny_)
+    g = g.rename_vertices(lambda v: (2 * v[0] - 1, 2 * v[1] - 1))
+    out = g.copy()
+    for e in g.edges():
+        vsrc, vdst = e.src, e.dst
+        v_new = ((vsrc[0] + vdst[0]) / 2, (vsrc[1] + vdst[1]) / 2)
+        out.add_vertex_inplace(v_new)
+        out.rem_edge_inplace(e)
+        out.add_edge_inplace(NamedEdge(vsrc, v_new))
+        out.add_edge_inplace(NamedEdge(v_new, vdst))
+    return out
+
+
+def ibm_eagle_lattice() -> NamedGraph:
+    """The 127-qubit IBM-Eagle heavy-hex topology (the utility-scale
+    kicked-Ising geometry): 7 long rows of 14/15 qubits on columns 0–14,
+    bridged every 4 columns with alternating offset; 127 vertices, 144
+    edges, max degree 3.
+
+    Vertices are (row, col) with bridge qubits at (row + 0.5, col)."""
+    g = NamedGraph()
+    rows = range(7)
+    cols_of = {0: range(0, 14), 6: range(1, 15)}
+    for r in rows:
+        cols = cols_of.get(r, range(0, 15))
+        prev = None
+        for c in cols:
+            v = (r, c)
+            g.add_vertex_inplace(v)
+            if prev is not None:
+                g.add_edge_inplace(NamedEdge(prev, v))
+            prev = v
+    for r in range(6):
+        offset = 0 if r % 2 == 0 else 2
+        for c in range(offset, 15, 4):
+            if not (g.has_vertex((r, c)) and g.has_vertex((r + 1, c))):
+                continue
+            b = (r + 0.5, c)
+            g.add_vertex_inplace(b)
+            g.add_edge_inplace(NamedEdge((r, c), b))
+            g.add_edge_inplace(NamedEdge(b, (r + 1, c)))
+    return g
+
+
+def _gate_vertices(spec):
+    if isinstance(spec, NamedEdge):
+        return [spec.src, spec.dst]
+    if isinstance(spec, list):
+        return spec
+    if isinstance(spec, tuple) and any(isinstance(x, tuple) for x in spec):
+        return list(spec)
+    # a bare coordinate tuple (or scalar) names a single vertex
+    return [spec]
+
