@@ -9,12 +9,17 @@ CUDA toolkit (``nvcc``)::
 Phases, each printing its checks and seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``), the ``nvcc``
-   version; then the CUDA kernels are built from ``csrc/``;
+   version, the colour-group bucket sizes of each grid configuration and
+   the process's ``PYTHONHASHSEED`` (the vendored edge colouring follows
+   string hashing); then the CUDA kernels are built from ``csrc/``, one
+   ``nvcc`` per source, all started together;
 2. each kernel against its plain PyTorch version on the card, inputs made
    from a numpy seed, at the main path's shapes among others: K1
    ``jacobi_pseudo_roots`` at [72,10,10], K2 ``jacobi_eigh`` on full-rank
    and rank-deficient PSD batches at [12,40,40] and [200,64,64], K3
-   ``bp_outgoing_d3`` at [127,64,64,64,2];
+   ``bp_outgoing_d3`` at [127,64,64,64,2], K4 ``complex_matmul`` against
+   its plain version and a complex128 numpy A@B on five shapes (a ragged
+   one among them);
 3. main path, ``chi10``: 5x5 TFIM at χ=10, five layers on the fast stack
    (Jacobi eigh, gram split, CholeskyQR2); K1 and K2 must launch, and ⟨Z⟩
    must agree with the same layers on the library eigh to 1e-4.  The
@@ -26,10 +31,36 @@ Phases, each printing its checks and seconds:
    checked as in phase 3;
 5. physics: 3x3 TFIM at χ=8, cutoff 0, complex64, BP ⟨Z⟩ against the
    dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4;
-6. times (CUDA events, after warm-up): layers/s of both configurations
-   with the kernels on and off, and each kernel against its plain version
-   on the main-path-shape batches of phase 2.
+6. ``rolled``: the bench's headline ``chi10_rolled`` (bench.py:219-262),
+   the parametric field layer on the 5x5 grid at χ=10 with 64 rolled angle
+   sets, 10 layers; K1 and K2 must launch, ⟨Z⟩ kernels on vs off to 1e-4,
+   the recorded kernel inputs checked as in phase 3;
+7. ``bonds``: on the rolled state, ⟨Z⊗Z⟩ per edge from
+   ``bond_expectations`` against the trace of ``bond_rdms`` with Z⊗Z, 1e-5;
+8. ``ensemble``: 8 rolled realizations with distinct angles (member e
+   scaled by (1 + e)/2) in one folded program at the default BP tolerance;
+   K1 and K2 must launch; ⟨Z⟩ to 1e-5 against the same fold with each
+   member in all 8 slots, and to 1e-4 against single runs (per layer from
+   the same inputs, and from the start) wherever the member's BP stopped
+   at the same sweeps as its single run's; where it did not, the two
+   distances at the earlier stop must straddle the tolerance within 0.1 x
+   tolerance, and the flip is printed; the sweep at which each member's
+   BP stopped is reported, and some refresh must stop members apart;
+9. ``noisy``: the parametric noisy layer (d=4 Pauli sites, depolarizing +
+   amplitude damping) on the 5x5 grid at χ=8 against
+   ``BatchedCircuit(picture="rho")`` + ``make_layer_fn`` at the same rates,
+   through the sandwich-BP readout: ⟨Z⟩ and ⟨X⟩ to 1e-4; K1 must launch;
+   it runs the fast stack with the SVD split (``SVD_STACK``);
+10. ``microbench``: every op of ``tensornetworkquantumsimulator_torch.
+   microbench`` at its sweep shapes (16,40) and (8,128), with small M
+   points; ``cpallas`` must launch K4;
+11. times (CUDA events, after warm-up): layers/s of chi10, chi64 and
+   chi10_rolled with the kernels on and off, and each kernel against its
+   plain version (K4 also against cuBLAS's ``a @ b``) on the
+   main-path-shape batches of phase 2.
 
+Each main path (chi10, chi64, rolled, ensemble, noisy, microbench) runs
+with every launch counter set to 0 just before it and read just after.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; it also exits non-zero when no CUDA
@@ -39,6 +70,7 @@ device is visible.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -53,6 +85,15 @@ REPO = Path(__file__).resolve().parent
 FAST_STACK = {"TNQS_EIGH_ALG": "jacobi", "TNQS_SVD_ALG": "gram",
               "TNQS_QR_ALG": "cholqr2", "TNQS_BP_KERNEL": "0"}
 KERNELS_OFF = dict(FAST_STACK, TNQS_EIGH_ALG="default")
+# The fast stack with the library SVD split in place of the gram split, for
+# the noisy check, which holds two equivalent complex64 programs to each
+# other.  The gram split squares the condition number, so it resolves
+# singular values only to about sqrt(eps) of the largest: on an H100 it
+# reads the noisy d=4 layer's truncation errors as 1e-10 where they are
+# 5.9e-12, and moves <Z> by 1.2e-4 to 2.5e-4 between the noisy field layer
+# and the equivalent compiled circuit (2e-6 to 4.5e-6 with the SVD split).
+# K1 runs on both stacks; K2 serves only the gram split.
+SVD_STACK = dict(FAST_STACK, TNQS_SVD_ALG="default")
 BAND = 1e-4  # max site |Δ⟨Z⟩| of the Jacobi path (bench.py:166-175)
 
 
@@ -280,6 +321,43 @@ def check_k3(dev, rng, cb) -> list:
     return entries
 
 
+K4_SHAPES = (((8, 128, 128), (8, 128, 128)), ((16, 40, 40), (16, 40, 40)),
+             ((3, 128, 128), (3, 128, 128)), ((2, 64, 128), (2, 128, 256)),
+             ((5, 33, 17), (5, 17, 65)))
+K4_MICROBENCH = ("8x128x128@8x128x128", "16x40x40@16x40x40")
+
+
+def check_k4(dev, rng, cm) -> list:
+    """Bar of tests/test_pallas_kernels.py:24,39, max|C - A@B| / max|A@B|
+    < 1e-5, against a complex128 numpy A@B and against the plain version,
+    on the reference tests' shapes, the microbenchmark's and a ragged one.
+    Returns the comparisons at the microbenchmark's shapes."""
+    entries = []
+    for sa, sb in K4_SHAPES:
+        a = (rng.standard_normal(sa) + 1j * rng.standard_normal(sa)).astype(
+            np.complex64)
+        b = (rng.standard_normal(sb) + 1j * rng.standard_normal(sb)).astype(
+            np.complex64)
+        ref = a.astype(np.complex128) @ b.astype(np.complex128)
+        at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        c = cm.complex_matmul(at, bt)
+        p = cm.complex_matmul_plain(at, bt)
+        scale = np.abs(ref).max()
+        e_ref = float(np.abs(to_np(c) - ref).max() / scale)
+        e_plain_ref = float(np.abs(to_np(p) - ref).max() / scale)
+        label = "x".join(map(str, sa)) + "@" + "x".join(map(str, sb))
+        entry = compared(label, (at, bt), (c,), (p,))
+        entry["ref"] = e_ref
+        assert e_ref < 1e-5 and entry["rel"] < 1e-5, (
+            f"K4 {label}: vs complex128 {e_ref:.3e}, vs plain "
+            f"{entry['rel']:.3e} (bar 1e-5)")
+        log("k4", f"{label}: scaled error vs complex128 {e_ref:.2e} (plain "
+                  f"{e_plain_ref:.2e}), vs plain {entry['rel']:.2e} (bar 1e-5)")
+        if label in K4_MICROBENCH:
+            entries.append(entry)
+    return entries
+
+
 @contextlib.contextmanager
 def recording(targets: dict):
     """Record what the main path hands each kernel wrapper: for every
@@ -398,24 +476,31 @@ def run_layers(tt, dev, name, n, env):
     return z
 
 
-def main_path(tt, dev, counters, name, nlayers, env, required, targets):
-    """Run the main path once with every launch counter at 0, recording
-    what it hands each kernel; assert the required kernels ran and ⟨Z⟩
-    agrees with the kernels-off path.  Returns (launches, recorded)."""
+def counted(counters, name, required, run):
+    """Run one main path with every launch counter at 0 just before it;
+    return (launches just after, what ``run`` returned), and fail if a
+    required kernel never launched."""
     for c in counters.values():
         c.reset()
-    with recording(targets) as seen:
-        z_on = run_layers(tt, dev, name, nlayers, env)
+    out = run()
     launches = {k: c.count for k, c in counters.items()}
     for k in required:
         assert launches[k] > 0, f"{name}: kernel {k} was never launched"
-    z_off = run_layers(tt, dev, name, nlayers, KERNELS_OFF)
+    return launches, out
+
+
+def main_path(counters, name, run, env, required, targets):
+    """Run the main path once (``run(env)`` returns per-site ⟨Z⟩), counted
+    and recording what it hands each kernel; assert ⟨Z⟩ agrees with the
+    kernels-off path.  Returns (launches, recorded, ⟨Z⟩)."""
+    with recording(targets) as seen:
+        launches, z_on = counted(counters, name, required, lambda: run(env))
+    z_off = run(KERNELS_OFF)
     dz = float(np.abs(z_on - z_off).max())
     assert dz <= BAND, f"{name}: max site |dZ| kernels on/off {dz:.3e} > {BAND}"
-    log(name, f"{nlayers} layers: launches {launches}; <Z> finite, mean "
-              f"{z_on.mean():.6f}; max site |dZ| vs kernels off {dz:.2e} "
-              f"(bar {BAND})")
-    return launches, seen
+    log(name, f"launches {launches}; <Z> finite, mean {z_on.mean():.6f}; "
+              f"max site |dZ| vs kernels off {dz:.2e} (bar {BAND})")
+    return launches, seen, z_on
 
 
 def physics_check(tt, dev):
@@ -444,19 +529,399 @@ def physics_check(tt, dev):
                    f"{[round(x, 7) for x in golden]}: max |dZ| {dz:.2e} (bar 1e-4)")
 
 
-def layers_per_second(tt, dev, name, nlayers, env) -> float:
+# ---------------------------------------------------------------------------
+# phases 6-10: the rolled, bond, ensemble, noisy and microbenchmark paths
+# ---------------------------------------------------------------------------
+
+ROLLS = 64  # distinct angle sets of chi10_rolled (bench.py:240)
+
+
+def rolled_angles(spec, dev):
+    """The bench's 64 rolled angle sets (bench.py:240-252): site angles
+    [64, 2, V] for the (X, Z) rotations, bond angles [64, E], float32."""
+    V, E = spec.num_vertices, len(spec.edges)
+    rr = np.arange(ROLLS, dtype=np.float32)
+    site = np.stack([
+        0.5 * (1.0 + 0.05 * np.sin(rr)[:, None] + np.zeros((ROLLS, V))),
+        0.4 * (1.0 + 0.05 * np.cos(rr)[:, None] + np.zeros((ROLLS, V))),
+    ], axis=1).astype(np.float32)
+    bond = (0.25 * (1.0 + 0.05 * np.sin(2.0 * rr)[:, None]
+                    + np.zeros((ROLLS, E)))).astype(np.float32)
+    return torch.from_numpy(site).to(dev), torch.from_numpy(bond).to(dev)
+
+
+def build_rolled(tt, dev):
+    """(spec, state, field layer, site rolls, bond rolls) of chi10_rolled:
+    5x5 grid, χ=10, site_pauli=(X, Z), bond_pauli=ZZ, cutoff 1e-10,
+    bp_maxiter=25, complex64 (bench.py:228-239)."""
+    g, chi = tt.named_grid((5, 5)), 10
+    spec, state = tt.batched_product_state(g, chi=chi, dtype=torch.complex64,
+                                           device=dev)
+    _, layer = tt.parallel.make_field_layer_fn(
+        g, chi=chi, site_pauli=("X", "Z"), bond_pauli="ZZ", cutoff=1e-10,
+        bp_maxiter=25, spec=spec, device=dev,
+    )
+    return (spec, state, layer) + rolled_angles(spec, dev)
+
+
+def run_rolled(tt, dev, n, env):
+    """n rolled layers (layer i takes angle set i mod 64); returns the
+    spec, the state and per-site ⟨Z⟩."""
     with knobs(env):
-        _, state, layer_fn = build_config(tt, dev, name)
-        state, _ = layer_fn(state)  # warm-up layer
+        spec, state, layer, site, bond = build_rolled(tt, dev)
+        for i in range(n):
+            state, errs = layer(state, site[i % ROLLS], bond[i % ROLLS])
+        z = tt.local_expectations(spec, state, tt.op_matrix("Z", 2)
+                                  ).real.cpu().numpy()
+        torch.cuda.synchronize()
+    assert np.isfinite(z).all(), "rolled: non-finite <Z>"
+    assert torch.isfinite(errs).all(), "rolled: non-finite truncation error"
+    return spec, state, z
+
+
+def bonds_check(tt, spec, state):
+    """⟨Z⊗Z⟩ on every edge two ways: ``bond_expectations`` and the trace
+    of ``bond_rdms`` against Z⊗Z."""
+    z = tt.op_matrix("Z", 2)
+    zz = tt.parallel.bond_expectations(spec, state, z, z).real.cpu().numpy()
+    rho = tt.parallel.bond_rdms(spec, state).cpu().numpy()
+    zz_rdm = np.real(np.einsum("esxcy,xs,yc->e", rho, z, z))
+    assert zz.shape == (len(spec.edges),) and np.isfinite(zz).all()
+    diff = float(np.abs(zz - zz_rdm).max())
+    assert diff <= 1e-5 and np.abs(zz).max() <= 1 + 1e-5, (
+        f"bonds: |ZZ - Tr(rho ZZ)| {diff:.3e}")
+    log("bonds", f"{len(zz)} edges: <ZZ> in [{zz.min():.5f}, {zz.max():.5f}]; "
+                 f"max |bond_expectations - Tr(bond_rdms ZZ)| {diff:.2e} "
+                 f"(bar 1e-5)")
+
+
+ENSEMBLE = 8
+ENSEMBLE_LAYERS = 6
+# Where a member's BP stops at another sweep than its single run's, the two
+# distances read at that sweep must lie on either side of the tolerance and
+# within this fraction of it of each other: the states that feed a flip
+# differ only by rounding.  On an H100 the one flip in twelve runs (one per
+# PYTHONHASHSEED 0-11) read 1.0009e-5 in the fold and 9.9912e-6 alone.
+FLIP_MARGIN = 0.1
+
+
+def member_angles(site, bond, layer, members=None):
+    """Member e's angles at a layer: the roll 8·e ahead of the layer's,
+    scaled by (1 + e)/2, so that stronger members need more BP sweeps (in
+    12 of the 30 refreshes of this run, members stop at different sweeps).
+    At the bench's own angles every refresh stops all members together."""
+    e = torch.arange(ENSEMBLE, device=site.device)
+    if members is not None:
+        e = e[members]
+    j = (layer + 8 * e) % ROLLS
+    f = (0.5 * (1 + e)).to(site.dtype)
+    return site[j] * f[:, None, None], bond[j] * f[:, None]
+
+
+@contextlib.contextmanager
+def bp_sweeps(engine, ens_mod):
+    """Record every BP refresh run inside: yields a list that gains, per
+    refresh, one [members] array of message distances per sweep, the
+    quantity each member's stopping test reads."""
+    refreshes = []
+    measure, refresh = engine._message_distance, ens_mod.bp_update
+
+    def recorded_distance(a, b, mask, members=1):
+        out = measure(a, b, mask, members)
+        refreshes[-1].append(out.detach().cpu().numpy())
+        return out
+
+    def recorded_refresh(*args, **kwargs):
+        refreshes.append([])
+        return refresh(*args, **kwargs)
+
+    engine._message_distance, ens_mod.bp_update = (recorded_distance,
+                                                   recorded_refresh)
+    try:
+        yield refreshes
+    finally:
+        engine._message_distance, ens_mod.bp_update = measure, refresh
+
+
+def stop_sweep(sweeps, tol, e=0):
+    """The sweep at which member e's BP stopped in one refresh: the first
+    whose distance fell to the tolerance (None: it ran to maxiter)."""
+    return next((s for s, d in enumerate(sweeps) if d[e] <= tol), None)
+
+
+def first_flip(fold, single, e, tol):
+    """The first refresh in which member e of the fold and its single run
+    stopped BP at different sweeps: None if there is none, else the two
+    distances measured at the earlier of the two stops."""
+    assert len(fold) == len(single), (len(fold), len(single))
+    for rf, rs in zip(fold, single):
+        a, b = stop_sweep(rf, tol, e), stop_sweep(rs, tol)
+        if a != b:
+            s = min(x for x in (a, b) if x is not None)
+            return float(rf[s][e]), float(rs[s][0])
+    return None
+
+
+def ensemble_check(tt, dev, engine, counters, required):
+    """8 rolled realizations, distinct angles, in one folded program at the
+    default BP tolerance (counted), held to 1e-5 against the same fold run
+    with each member's angles in all 8 slots: the batches then have the
+    same shapes, so the kernels and libraries round alike, and what is
+    compared is the fold itself (indices, per-member BP stopping).
+
+    Each member is also held against its single run of each layer from the
+    same input state, and against its single runs left to themselves from
+    the start.  Those are complex64 programs with other batch sizes, whose
+    other rounding a strongly driven, truncated layer amplifies, so they
+    are held to the band of two equivalent complex64 programs (BAND), as
+    long as the member's BP stopped at the same sweep as its single run's
+    in every refresh.  Where it did not, the two runs took a different
+    decision, not a different path to the same one: one more sweep moves
+    the messages by up to a fidelity distance of the tolerance, which a
+    driven layer turns into |d<Z>| of 1e-4 and more.  Such a flip must
+    straddle the tolerance: the two runs' distances at the earlier stop
+    lie on either side of it and within FLIP_MARGIN x tolerance of each
+    other.  Flips are counted and printed, with their |d<Z>|.
+    Returns (launches, ensemble seconds per layer, single seconds per
+    member-layer)."""
+    ens_mod = tt.parallel.ensemble
+    spec, s0, layer, site, bond = build_rolled(tt, dev)
+    z_fn = ens_mod.make_ensemble_expectation_fn(spec, tt.op_matrix("Z", 2),
+                                                True)
+    tol = engine.default_batched_tolerance(s0.tensors.dtype)
+    elayer = ens_mod.ensemble_fn(layer)
+
+    def run():
+        states = [ens_mod.stack_states([s0] * ENSEMBLE)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ENSEMBLE_LAYERS):
+            states.append(elayer(states[-1], *member_angles(site, bond, i))[0])
+        torch.cuda.synchronize()
+        return states, (time.perf_counter() - t0) / ENSEMBLE_LAYERS
+
+    with bp_sweeps(engine, ens_mod) as fold:
+        launches, (states, t_ens) = counted(counters, "ensemble", required,
+                                            run)
+    R = len(fold) // ENSEMBLE_LAYERS  # BP refreshes per layer
+    assert R * ENSEMBLE_LAYERS == len(fold), len(fold)
+    stops = [tuple(stop_sweep(sw, tol, e) for e in range(ENSEMBLE))
+             for sw in fold]
+    z_ens = [z_fn(st).cpu().numpy() for st in states[1:]]
+    assert all(np.isfinite(z).all() for z in z_ens), "ensemble: non-finite <Z>"
+
+    def single(st, i, e):
+        s_e, b_e = member_angles(site, bond, i, [e])
+        with bp_sweeps(engine, ens_mod) as sweeps:
+            out = layer(st, s_e[0], b_e[0])[0]
+        return out, sweeps
+
+    flips = []
+
+    def held(where, e, fold_sweeps, single_sweeps, dz):
+        """|d<Z>| of member e, held to BAND unless BP stopped apart; then
+        the flip must straddle the tolerance.  Returns the |d<Z>| held."""
+        flip = first_flip(fold_sweeps, single_sweeps, e, tol)
+        if flip is None:
+            assert dz <= BAND, (
+                f"ensemble: member {e} {where}: max site |dZ| vs its single "
+                f"run {dz:.3e} (bar {BAND}), BP stopped alike")
+            return dz
+        d_f, d_s = flip
+        assert (d_f <= tol) != (d_s <= tol) and (
+            abs(d_f - d_s) <= FLIP_MARGIN * tol), (
+            f"ensemble: member {e} {where}: BP stopped apart from its single "
+            f"run at distances {d_f:.6e} / {d_s:.6e}, which do not straddle "
+            f"the tolerance {tol} within {FLIP_MARGIN} x tolerance")
+        flips.append(f"{where}, member {e}: distances {d_f:.4e} / {d_s:.4e}, "
+                     f"|dZ| {dz:.2e}")
+        return 0.0
+
+    per_layer = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ENSEMBLE_LAYERS):
+        inputs = ens_mod.unstack_states(states[i])
+        outs, sweeps = zip(*(single(inputs[e], i, e)
+                             for e in range(ENSEMBLE)))
+        dz = np.abs(z_fn(ens_mod.stack_states(list(outs))).cpu().numpy()
+                    - z_ens[i]).max(axis=1)
+        for e in range(ENSEMBLE):
+            per_layer = max(per_layer, held(
+                f"layer {i} from the same input", e,
+                fold[i * R:(i + 1) * R], sweeps[e], float(dz[e])))
+    t_single = (time.perf_counter() - t0) / (ENSEMBLE * ENSEMBLE_LAYERS)
+    free, free_sweeps = [s0] * ENSEMBLE, [[] for _ in range(ENSEMBLE)]
+    for i in range(ENSEMBLE_LAYERS):
+        for e in range(ENSEMBLE):
+            free[e], sweeps = single(free[e], i, e)
+            free_sweeps[e] += sweeps
+    dz = np.abs(z_fn(ens_mod.stack_states(free)).cpu().numpy()
+                - z_ens[-1]).max(axis=1)
+    drift = max(held("from the start", e, fold, free_sweeps[e], float(dz[e]))
+                for e in range(ENSEMBLE))
+    same = 0.0
+    for e in range(ENSEMBLE):
+        st = states[0]
+        for i in range(ENSEMBLE_LAYERS):
+            st = elayer(st, *member_angles(site, bond, i, [e] * ENSEMBLE))[0]
+        same = max(same, float(np.abs(z_fn(st).cpu().numpy()
+                                      - z_ens[-1][e]).max()))
+    assert same <= 1e-5, (
+        f"ensemble: max site |dZ| vs the fold of each member alone {same:.3e} "
+        f"(bar 1e-5)")
+    apart = sum(len(set(s)) > 1 for s in stops)
+    assert apart > 0, f"ensemble: every member stopped together: {stops}"
+    log("ensemble", f"E={ENSEMBLE}, {ENSEMBLE_LAYERS} layers: launches "
+                    f"{launches}; max site |dZ| vs the fold of each member in "
+                    f"all {ENSEMBLE} slots {same:.2e} (bar 1e-5); vs the "
+                    f"single runs of each layer from the same inputs "
+                    f"{per_layer:.2e}, vs single runs from the start "
+                    f"{drift:.2e} (bar {BAND}, members whose BP stopped "
+                    f"alike); members stopped at different sweeps in {apart} "
+                    f"of {len(stops)} BP refreshes; per-member stop sweep "
+                    f"(None = ran to maxiter) of each refresh: {stops}")
+    log("ensemble", f"{len(flips)} of {ENSEMBLE * (ENSEMBLE_LAYERS + 1)} "
+                    f"member comparisons stopped BP at another sweep than the "
+                    f"single run, straddling the tolerance {tol} within "
+                    f"{FLIP_MARGIN} x tolerance (fold / single distance): "
+                    f"{flips}")
+    return launches, t_ens, t_single
+
+
+def rho_circuit(tt, g, th, phi, p_dep, gam):
+    circuit = [("Rx", [v], th) for v in g.vertices()]
+    for grp in tt.edge_color(g, 4):
+        circuit += [("Rzz", pair, phi) for pair in grp]
+    circuit += [("depolarizing", [v], p_dep) for v in g.vertices()]
+    circuit += [("amplitude_damping", [v], gam) for v in g.vertices()]
+    return circuit
+
+
+NOISY = dict(th=0.31, phi=0.22, p_dep=0.05, gam=0.08)
+NOISY_LAYERS = 2
+
+
+def noisy_layers(tt, dev, counters):
+    """The parametric noisy layer on the 5x5 grid at χ=8 (d=4 Pauli sites,
+    complex64, fast stack with the SVD split), counted; then the same layers compiled from
+    the tuple circuit in the density-matrix picture; both read out through
+    the sandwich-BP Pauli expectations.  Returns the launches."""
+    g, chi = tt.named_grid((5, 5)), 8
+    spec, s0 = tt.batched_product_state(g, chi=chi, state_fn=lambda v: "0",
+                                        dtype=torch.complex64, d=4,
+                                        device=dev)
+    kw = dict(cutoff=1e-10, normalize_tensors=False, bp_maxiter=25)
+    rates = torch.tensor([NOISY["p_dep"], NOISY["gam"]], device=dev)
+    with knobs(SVD_STACK):
+        _, noisy = tt.parallel.make_noisy_field_layer_fn(
+            g, chi, site_pauli="X", bond_pauli="ZZ",
+            noise=("depolarizing", "amplitude_damping"), spec=spec,
+            device=dev, **kw)
+
+        def run():
+            st = s0
+            for _ in range(NOISY_LAYERS):
+                st, errs = noisy(st, NOISY["th"], NOISY["phi"], rates)
+            torch.cuda.synchronize()
+            return st, errs
+
+        launches, (state_a, errs) = counted(counters, "noisy", ("K1",), run)
+        ref = tt.make_layer_fn(
+            tt.BatchedCircuit(rho_circuit(tt, g, **NOISY), g, spec=spec, d=4,
+                              picture="rho"), chi=chi, device=dev, **kw)
+        state_b = s0
+        for _ in range(NOISY_LAYERS):
+            state_b, _ = ref(state_b)
+        fn = tt.parallel.make_pauli_expectation_fn(spec, chi, torch.complex64,
+                                                   ops=("Z", "X"))
+        va, vb = fn(state_a), fn(state_b)
+    worst = {}
+    for op in ("Z", "X"):
+        a, b = va[op].cpu().numpy(), vb[op].cpu().numpy()
+        assert np.isfinite(a).all() and np.abs(a).max() <= 1 + 1e-4, (
+            f"noisy: <{op}> out of range")
+        worst[op] = float(np.abs(a - b).max())
+        assert worst[op] <= BAND, (
+            f"noisy: max site |d<{op}>| vs the rho circuit {worst[op]:.3e}")
+    assert torch.isfinite(errs).all(), "noisy: non-finite truncation error"
+    log("noisy", f"{NOISY_LAYERS} layers: launches {launches}; <Z> mean "
+                 f"{va['Z'].mean():.6f}, <X> mean {va['X'].mean():.6f}; max "
+                 f"site |d<Z>| {worst['Z']:.2e}, |d<X>| {worst['X']:.2e} vs "
+                 f"BatchedCircuit(picture='rho') (bar {BAND})")
+    return launches
+
+
+MICRO_M_POINTS = (4, 16)
+
+
+def microbench_phase(counters):
+    """Every op at the reference sweep shapes, counted; ``cpallas`` is the
+    K4 path.  Prints each slope record."""
+    from tensornetworkquantumsimulator_torch import microbench as mb
+
+    buf = io.StringIO()
+    launches, records = counted(
+        counters, "microbench", ("K4",),
+        lambda: mb.sweep(mb.SWEEP_SHAPES, mb.OPS, MICRO_M_POINTS, out=buf))
+    for line in buf.getvalue().splitlines():
+        log("microbench", line)
+    bad = [(r["op"], r["B"], r["N"]) for r in records if not r["valid"]]
+    assert not bad, f"microbench: non-finite z for {bad}"
+    log("microbench", f"{len(records)} (op, shape) pairs at M = "
+                      f"{MICRO_M_POINTS}; launches {launches}")
+    # the point long chains converge to: equal complex columns, on which
+    # torch's batched QR returns NaN (microbench.library_qr)
+    for b, n in mb.SWEEP_SHAPES:
+        fixed = torch.full((b, n, n), 0.0088 + 0.0088j, dtype=torch.complex64,
+                           device="cuda")
+        out = mb.step("qr", fixed)
+        assert torch.isfinite(torch.view_as_real(out)).all(), (
+            f"microbench: qr step non-finite on the [{b},{n},{n}] fixed point")
+    log("microbench", "qr step finite on the chains' fixed point (equal "
+                      "complex columns) at both shapes")
+    return launches
+
+
+def layers_per_second(tt, dev, name, nlayers, env) -> float:
+    """Layers/s over ``nlayers`` layers after one warm-up layer, between two
+    CUDA events."""
+    with knobs(env):
+        if name == "chi10_rolled":
+            _, state, layer, site, bond = build_rolled(tt, dev)
+
+            def step(st, i):
+                return layer(st, site[i % ROLLS], bond[i % ROLLS])[0]
+        else:
+            _, state, layer_fn = build_config(tt, dev, name)
+
+            def step(st, i):
+                return layer_fn(st)[0]
+        state = step(state, 0)  # warm-up layer
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(nlayers):
-            state, _ = layer_fn(state)
+        for i in range(nlayers):
+            state = step(state, 1 + i)
         end.record()
         end.synchronize()
     return nlayers / (start.elapsed_time(end) / 1e3)
+
+
+def colour_groups(tt) -> None:
+    """The colour-group bucket sizes of each grid configuration, with the
+    process's PYTHONHASHSEED: the vendored edge colouring walks
+    hash-ordered sets, so the grouping (and the batch each kernel sees)
+    can change between runs."""
+    seed = os.environ.get("PYTHONHASHSEED", "unset (random per process)")
+    for name, g in (("5x5 grid (chi10, chi10_rolled, noisy)",
+                     tt.named_grid((5, 5))),
+                    ("Eagle-127 (chi64)", tt.ibm_eagle_lattice())):
+        sizes = [[len(b.u_idx) for b in grp]
+                 for grp in tt.compile_graph(g).color_groups]
+        log("groups", f"{name}: edges per (slot pair) bucket, per colour "
+                      f"group: {sizes}; PYTHONHASHSEED {seed}")
 
 
 def main() -> int:
@@ -468,6 +933,7 @@ def main() -> int:
     from tensornetworkquantumsimulator_torch.parallel import cuda_bp as cb
     from tensornetworkquantumsimulator_torch.parallel import cuda_build
     from tensornetworkquantumsimulator_torch.parallel import cuda_linalg as cl
+    from tensornetworkquantumsimulator_torch.parallel import cuda_matmul as cm
     from tensornetworkquantumsimulator_torch.parallel import engine
 
     t_phase = time.perf_counter()
@@ -478,7 +944,7 @@ def main() -> int:
         log(phase, f"phase seconds {now - t_phase:.1f}")
         t_phase = now
 
-    # 1. device and build
+    # 1. device, colour groups and build
     dev = tt.select_device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -490,6 +956,7 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60)
     log("device", f"{kind}; torch {torch.__version__} (CUDA "
                   f"{torch.version.cuda}); {nvcc.stdout.strip().splitlines()[-1]}")
+    colour_groups(tt)
     cuda_build.library()
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
@@ -499,50 +966,82 @@ def main() -> int:
     done("device")
 
     # 2. kernels against their plain versions; the comparisons at the
-    # main path's shapes are kept for phase 6, which times them
+    # main path's shapes are kept for the times phase, which times them
     rng = np.random.default_rng(2024)
     shaped = {"K1": check_k1(dev, rng, cl), "K2": check_k2(dev, rng, cl),
-              "K3": check_k3(dev, rng, cb)}
+              "K3": check_k3(dev, rng, cb), "K4": check_k4(dev, rng, cm)}
     torch.cuda.synchronize()
     done("kernels")
 
     # 3-4. the main path, counted; then each kernel against its plain
     # version on the inputs the main path gave it (launches not counted)
     counters = {"K1": cl.roots_launches, "K2": cl.eigh_launches,
-                "K3": cb.bp_launches}
+                "K3": cb.bp_launches, "K4": cm.matmul_launches}
     targets = {"K1": (engine, "jacobi_pseudo_roots"),
                "K2": (engine, "jacobi_eigh"),
                "K3": (cb, "bp_outgoing_d3")}
-    c10, seen = main_path(tt, dev, counters, "chi10", 5, FAST_STACK,
-                          ("K1", "K2"), targets)
-    check_recorded("chi10", seen, cl, cb)
-    done("chi10")
-    c64, seen = main_path(tt, dev, counters, "chi64", 2,
-                          dict(FAST_STACK, TNQS_BP_KERNEL="1"), ("K2", "K3"),
-                          targets)
-    check_recorded("chi64", seen, cl, cb)
-    del seen
-    done("chi64")
-    launches = {k: c10[k] + c64[k] for k in counters}
+    paths = {}
+    for name, n, env, required in (
+            ("chi10", 5, FAST_STACK, ("K1", "K2")),
+            ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1"), ("K2", "K3"))):
+        paths[name], seen, _ = main_path(
+            counters, name,
+            lambda env, name=name, n=n: run_layers(tt, dev, name, n, env),
+            env, required, targets)
+        check_recorded(name, seen, cl, cb)
+        del seen
+        done(name)
 
     # 5. absolute physics
     physics_check(tt, dev)
     done("physics")
 
-    # 6. times
+    # 6-7. the rolled headline and the bond observables on its state
+    rolled = {}
+
+    def run_rolled_z(env):
+        rolled[env["TNQS_EIGH_ALG"]] = run_rolled(tt, dev, 10, env)
+        return rolled[env["TNQS_EIGH_ALG"]][2]
+
+    paths["rolled"], seen, _ = main_path(counters, "rolled", run_rolled_z,
+                                         FAST_STACK, ("K1", "K2"), targets)
+    check_recorded("rolled", seen, cl, cb)
+    del seen
+    done("rolled")
+    spec, state, _ = rolled["jacobi"]
+    bonds_check(tt, spec, state)
+    del rolled, state
+    done("bonds")
+
+    # 8-10. the ensemble, the noisy layer and the microbenchmark
+    with knobs(FAST_STACK):
+        paths["ensemble"], t_ens, t_single = ensemble_check(
+            tt, dev, engine, counters, ("K1", "K2"))
+    done("ensemble")
+    paths["noisy"] = noisy_layers(tt, dev, counters)
+    done("noisy")
+    paths["microbench"] = microbench_phase(counters)
+    done("microbench")
+    launches = {k: sum(p[k] for p in paths.values()) for k in counters}
+
+    # 11. times
     for name, n, on in (("chi10", 20, FAST_STACK),
-                        ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1"))):
+                        ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1")),
+                        ("chi10_rolled", 20, FAST_STACK)):
         rate_on = layers_per_second(tt, dev, name, n, on)
         rate_off = layers_per_second(tt, dev, name, n, KERNELS_OFF)
         rate_on2 = layers_per_second(tt, dev, name, n, on)
         log("times", f"{name}: {rate_on:.2f} / {rate_on2:.2f} layers/s kernels "
                      f"on, {rate_off:.2f} layers/s kernels off ({n} layers "
                      f"after one warm-up)")
+    log("times", f"ensemble of {ENSEMBLE} rolled members: {t_ens * 1e3:.1f} "
+                 f"ms per ensemble layer vs {t_single * 1e3:.1f} ms per "
+                 f"single-member layer (host clock, distance recording on)")
     plain = {"K1": cl.pseudo_roots_plain, "K2": cl.eigh_plain,
-             "K3": cb.bp_outgoing_plain}
+             "K3": cb.bp_outgoing_plain, "K4": cm.complex_matmul_plain}
     wrapper = {"K1": cl.jacobi_pseudo_roots, "K2": cl.jacobi_eigh,
-               "K3": cb.bp_outgoing_d3}
-    reps = {"K1": 50, "K2": 20, "K3": 5}
+               "K3": cb.bp_outgoing_d3, "K4": cm.complex_matmul}
+    reps = {"K1": 50, "K2": 20, "K3": 5, "K4": 100}
     for k, entries in shaped.items():
         for e in entries:
             e["ms"] = time_ms(lambda: wrapper[k](*e["args"]), reps[k])
@@ -551,8 +1050,12 @@ def main() -> int:
             if k == "K2":
                 raw = time_ms(lambda: cl.jacobi_eigh_raw(*e["args"]), reps[k])
                 extra = f" (kernel alone {raw:.4f} ms)"
-            log("times", f"{k} {e['shape']}: kernel {e['ms']:.4f} ms{extra}, "
-                         f"plain {e['plain_ms']:.4f} ms")
+            if k == "K4":
+                a, b = e["args"]
+                e["cublas_ms"] = time_ms(lambda: a @ b, reps[k])
+                extra = f", cuBLAS a @ b {e['cublas_ms']:.4f} ms"
+            log("times", f"{k} {e['shape']}: kernel {e['ms']:.4f} ms, "
+                         f"plain {e['plain_ms']:.4f} ms{extra}")
     done("times")
 
     meta = {
@@ -565,27 +1068,33 @@ def main() -> int:
         "K3": ("bp_outgoing_d3",
                "tensornetworkquantumsimulator_torch/csrc/bp_outgoing_d3.cu",
                "tensornetworkquantumsimulator_tpu/parallel/pallas_bp.py:166"),
+        "K4": ("complex_matmul",
+               "tensornetworkquantumsimulator_torch/csrc/complex_matmul.cu",
+               "tensornetworkquantumsimulator_tpu/parallel/pallas_kernels.py:38"),
     }
     # max_abs_err: max |kernel - plain| over the gauge-free outputs (K1 root
-    # and inverse root, K2 eigenvalues, K3 messages) on the main-path-shape
-    # batches that were checked and timed; max_rel_err divides each
-    # output's error by its own max |plain| first
+    # and inverse root, K2 eigenvalues, K3 messages, K4 products) on the
+    # main-path-shape batches that were checked and timed; max_rel_err
+    # divides each output's error by its own max |plain| first
     what = {"K1": "root and inverse root", "K2": "eigenvalues",
-            "K3": "outgoing messages"}
+            "K3": "outgoing messages", "K4": "C = A @ B"}
     kernels = []
     for k, (name, source, replaces) in meta.items():
         entries = shaped[k]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[k],
+            "paths": {p: counts[k] for p, counts in paths.items()},
             "max_abs_err": max(e["abs"] for e in entries),
             "max_rel_err": max(e["rel"] for e in entries),
             "compared": what[k],
+            **({"max_rel_err_vs_complex128": max(e["ref"] for e in entries)}
+               if k == "K4" else {}),
             "ms": entries[0]["ms"], "plain_ms": entries[0]["plain_ms"],
             "shape": entries[0]["shape"],
-            "times": [{"shape": e["shape"], "ms": e["ms"],
-                       "plain_ms": e["plain_ms"], "max_abs_err": e["abs"]}
-                      for e in entries],
+            "times": [{k2: e[k2] for k2 in ("shape", "ms", "plain_ms",
+                                            "cublas_ms") if k2 in e}
+                      | {"max_abs_err": e["abs"]} for e in entries],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

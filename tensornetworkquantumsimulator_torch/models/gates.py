@@ -1,13 +1,17 @@
 """Gate matrices of the tuple-circuit format.
 
-A jax-free copy of ``gate_matrix`` and its numpy/scipy helpers from
-``tensornetworkquantumsimulator_tpu.models.gates`` (the reference's
-`gate_definitions.jl`).  Rxx/Ryy/Rzz parameters are halved (qiskit
-convention); rotations are ``exp(-i θ/2 P)``.
+A jax-free copy of ``gate_matrix``, ``pauli_transfer_matrix`` and their
+numpy/scipy helpers from ``tensornetworkquantumsimulator_tpu.models.gates``
+(the reference's `gate_definitions.jl`).  Rxx/Ryy/Rzz parameters are halved
+(qiskit convention); rotations are ``exp(-i θ/2 P)``.  On d=4 Pauli sites
+a gate becomes its Pauli-transfer matrix: ``T[i,j] = Tr[P_i U† P_j U]/d``
+(Heisenberg picture) or ``Tr[P_i U P_j U†]/d`` (density matrix).
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 
 import numpy as np
@@ -16,6 +20,7 @@ from scipy.linalg import expm
 from .sites import PAULI_I, PAULI_X, PAULI_Y, PAULI_Z, op_matrix
 
 _PAULIS = {"I": PAULI_I, "X": PAULI_X, "Y": PAULI_Y, "Z": PAULI_Z}
+_PAULI_LIST = [PAULI_I, PAULI_X, PAULI_Y, PAULI_Z]
 
 
 def _kron_pauli(chars: str) -> np.ndarray:
@@ -125,3 +130,46 @@ def gate_matrix(name: str, param=None) -> np.ndarray:
             dtype=np.complex128,
         )
     raise ValueError(f"unknown gate {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Pauli-transfer matrices (d=4 Pauli sites)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4096)
+def _ptm_cached(generator: str, theta: float) -> tuple:
+    u = expm(-1j * (theta / 2) * _kron_pauli(generator))
+    return tuple(map(tuple, pauli_transfer_matrix(u, heisenberg=True)))
+
+
+def pauli_transfer_matrix(u: np.ndarray, heisenberg: bool = True) -> np.ndarray:
+    """PTM of a unitary in the {I,X,Y,Z}^⊗n basis.
+
+    heisenberg=True: T[i,j] = Tr[P_i U† P_j U]/d, so Pauli coefficient
+    vectors evolve as c' = T c under O → U†OU (PauliPropagation
+    `calculateptm`, used at `gate_definitions.jl:70-77`).
+    """
+    d = u.shape[0]
+    n = int(round(math.log2(d)))
+    full = []
+    for combo in itertools.product(range(4), repeat=n):
+        p = np.array([[1.0]])
+        for k in combo:
+            p = np.kron(p, _PAULI_LIST[k])
+        full.append(p)
+    m = np.zeros((4**n, 4**n), dtype=np.complex128)
+    uh = u.conj().T
+    for j, pj in enumerate(full):
+        evolved = uh @ pj @ u if heisenberg else u @ pj @ uh
+        for i, pi in enumerate(full):
+            m[i, j] = np.trace(pi @ evolved) / d
+    if np.allclose(m.imag, 0, atol=1e-14):
+        m = m.real
+    return m
+
+
+@functools.lru_cache(maxsize=4096)
+def _ptm_schrodinger_cached(name: str, param) -> tuple:
+    m = pauli_transfer_matrix(gate_matrix(name, param), heisenberg=False)
+    return tuple(map(tuple, m))

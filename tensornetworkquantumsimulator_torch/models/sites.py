@@ -1,7 +1,7 @@
 """Local states and operators of the batched-engine slice.
 
-A jax-free copy of ``state_vector``, ``op_matrix`` and the Pauli constants
-from ``tensornetworkquantumsimulator_tpu.models.sites`` (the ITensors op /
+A jax-free copy of ``state_vector``, ``pauli_coefficients``, ``op_matrix``
+and the Pauli constants from ``tensornetworkquantumsimulator_tpu.models.sites`` (the ITensors op /
 state registry the reference leans on).
 """
 
@@ -41,6 +41,37 @@ PAULI_BASIS_STATES = {
     "Y": [0.0, 0.0, 1.0, 0.0],
     "Z": [0.0, 0.0, 0.0, 1.0],
 }
+
+
+def pauli_coefficients(local) -> np.ndarray:
+    """Pauli coefficient vector ``[Tr ρ, Tr ρX, Tr ρY, Tr ρZ]`` of a local
+    density matrix, given as a state string ("0", "+", "y-", …), a pure-state
+    2-vector, a 2×2 density matrix, or an already-4-long coefficient vector.
+    The convention matches `paulitensornetworkstate`: a one-site ρ is
+    ``(1/2) Σ_P c_P P`` with these c as the site tensor entries."""
+    if isinstance(local, str):
+        if local in PAULI_BASIS_STATES:
+            return np.asarray(PAULI_BASIS_STATES[local], dtype=np.float64)
+        if local.lower() in ("mixed", "id/2", "maximallymixed"):
+            return np.array([1.0, 0.0, 0.0, 0.0])
+        psi = state_vector(local, 2)
+        rho = np.outer(psi, psi.conj())
+    else:
+        arr = np.asarray(local)
+        if arr.shape == (4,):
+            return arr
+        if arr.shape == (2,):
+            rho = np.outer(arr, arr.conj())
+        elif arr.shape == (2, 2):
+            rho = arr
+        else:
+            raise ValueError(f"cannot interpret {local!r} as a local state")
+    c = np.array(
+        [np.trace(rho @ p) for p in (PAULI_I, PAULI_X, PAULI_Y, PAULI_Z)]
+    )
+    if np.allclose(c.imag, 0, atol=1e-14):
+        c = c.real
+    return c
 
 
 def state_vector(name: str, dim: int) -> np.ndarray:

@@ -2,7 +2,9 @@
 
 This system has no weights: the batched state (vertex tensors + BP
 messages) is the whole set of parameters, so moving a run between the
-two packages is a matter of handing its two arrays across as numpy.
+two packages is a matter of handing its two arrays across as numpy.  A
+stacked ensemble state (``[E, V, ...]``, from either package's
+``stack_states``) crosses the same way.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.sites import state_vector
+from ..models.sites import pauli_coefficients, state_vector
 from .engine import BatchedState
 from .structure import BatchedGraphSpec, compile_graph
 
@@ -30,7 +32,11 @@ def batched_product_state(
 ) -> tuple:
     """A product-state :class:`BatchedState`, built host-side in numpy and
     copied to ``device`` once.  ``state_fn`` maps a vertex to a state
-    string ("↑", "X+", ...) or vector; default is all-up."""
+    string ("↑", "X+", ...) or vector; default is all-up.  With ``d=4`` the
+    sites are density-matrix Pauli sites: a string names a one-site state
+    ("0", "+", "mixed", ...) and becomes its coefficient vector
+    [Tr ρ, Tr ρX, Tr ρY, Tr ρZ], as in the JAX package's
+    ``density_matrix_tensornetworkstate``."""
     if spec is None:
         spec = compile_graph(g)
     if state_fn is None:
@@ -43,7 +49,12 @@ def batched_product_state(
             tensors[(i,) + (0,) * D + (0,)] = 1.0
             continue
         local = state_fn(v)
-        vec = state_vector(local, d) if isinstance(local, str) else np.asarray(local)
+        if not isinstance(local, str):
+            vec = np.asarray(local)
+        elif d == 4:
+            vec = pauli_coefficients(local)
+        else:
+            vec = state_vector(local, d)
         tensors[(i,) + (0,) * D] = vec.astype(npdt)
     msgs = np.broadcast_to(np.eye(chi, dtype=npdt), (V, D, chi, chi)).copy()
     return spec, state_from_numpy(tensors, msgs, device)
@@ -52,10 +63,12 @@ def batched_product_state(
 def state_from_numpy(tensors: np.ndarray, messages: np.ndarray,
                      device=None) -> BatchedState:
     """A :class:`BatchedState` from numpy arrays (e.g. a JAX state's
-    ``np.asarray(state.tensors)``, ``np.asarray(state.messages)``)."""
+    ``np.asarray(state.tensors)``, ``np.asarray(state.messages)``), single
+    or stacked.  The arrays are copied: a JAX array's host view is
+    read-only, and the port's layers write into their own buffers."""
     return BatchedState(
-        torch.as_tensor(np.ascontiguousarray(tensors), device=device),
-        torch.as_tensor(np.ascontiguousarray(messages), device=device),
+        torch.tensor(np.asarray(tensors), device=device),
+        torch.tensor(np.asarray(messages), device=device),
     )
 
 

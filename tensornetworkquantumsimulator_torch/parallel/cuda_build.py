@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels in ``csrc/``.
 
-The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``
-into one shared library with a plain ``extern "C"`` interface, which is
-loaded with :mod:`ctypes`.  The library lands in ``build/tnqs_kernels/``
+The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``,
+one ``nvcc`` process per source, all started together, and linked into
+one shared library with a plain ``extern "C"`` interface, which is loaded
+with :mod:`ctypes`.  The library lands in ``build/tnqs_kernels/``
 at the root of the checkout, in a directory named after a hash of the
 sources and flags, so an edit to any source rebuilds it and an unchanged
 tree reuses it.
@@ -26,10 +27,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "tnqs_kernels"
-SOURCES = ("jacobi.cu", "bp_outgoing_d3.cu")
+SOURCES = ("jacobi.cu", "bp_outgoing_d3.cu", "complex_matmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -44,6 +45,8 @@ _SIGNATURES = {
     # (t, messages, out, scratch0, scratch1, partial, V, chi, d, splitk,
     #  stream)
     "tnqs_bp_outgoing_d3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (a, b, c, batch, n, k, m, stream)
+    "tnqs_complex_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -85,9 +88,47 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every ``(name, Popen)``; raise with the output of the first
+    that failed, else return their stderr (ptxas reports) joined."""
+    logs, failed = [], None
+    for name, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc {name} failed ({proc.returncode}):\n{out}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
+def _build(out_dir: Path, so: Path) -> None:
+    """Compile every source to an object in parallel, then link.  The
+    library is linked under a temporary name and renamed: a concurrent or
+    interrupted build never leaves a half-written library behind."""
+    global build_log
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [tmp_dir / (Path(s).stem + ".o") for s in SOURCES]
+        build_log = _run([
+            (s, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for s, o in zip(SOURCES, objs)
+        ])
+        tmp_so = tmp_dir / so.name
+        _run([("link", subprocess.Popen(
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp_so), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp_so, so)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call if needed."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
@@ -95,23 +136,9 @@ def library() -> ctypes.CDLL:
         so = out_dir / "libtnqs_kernels.so"
         if not so.is_file():
             out_dir.mkdir(parents=True, exist_ok=True)
-            # build into a temporary name, then rename: a concurrent or
-            # interrupted build never leaves a half-written library behind
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(str(CSRC / s) for s in SOURCES)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _build(out_dir, so)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                    f"{proc.stderr}"
-                )
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

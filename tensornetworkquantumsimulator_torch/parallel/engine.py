@@ -28,7 +28,7 @@ reference runs every einsum at ``Precision.HIGHEST``:
 
 from __future__ import annotations
 
-import math
+import functools
 import os
 import string
 from typing import NamedTuple
@@ -209,6 +209,41 @@ def graph_tables(spec: BatchedGraphSpec, device) -> GraphTables:
     )
 
 
+def fold_members(estate: BatchedState) -> BatchedState:
+    """An ensemble state [E, V, ...] as one state of E·V vertices (a view)."""
+    return BatchedState(estate.tensors.flatten(0, 1),
+                        estate.messages.flatten(0, 1))
+
+
+def unfold_members(state: BatchedState, members: int) -> BatchedState:
+    """The inverse of :func:`fold_members`."""
+    return BatchedState(state.tensors.unflatten(0, (members, -1)),
+                        state.messages.unflatten(0, (members, -1)))
+
+
+def member_indices(idx: torch.Tensor, members: int,
+                   num_vertices: int) -> torch.Tensor:
+    """Vertex indices ``idx`` [n, ...] for every member of an ensemble
+    folded into the vertex axis (member e's vertex v is row e·V + v), as
+    one [members·n, ...] index, member-major."""
+    if members == 1:
+        return idx
+    offs = num_vertices * torch.arange(members, device=idx.device)
+    return (idx[None] + offs.reshape((members,) + (1,) * idx.ndim)).reshape(
+        (-1,) + tuple(idx.shape[1:]))
+
+
+def member_tables(tables: GraphTables, members: int,
+                  num_vertices: int) -> GraphTables:
+    """The neighbour tables of ``members`` copies of a graph folded into
+    one graph of members·V vertices."""
+    if members == 1:
+        return tables
+    return GraphTables(member_indices(tables.nbr, members, num_vertices),
+                       tables.nbr_slot.repeat(members, 1),
+                       tables.mask.repeat(members, 1))
+
+
 def identity_messages(v: int, d: int, chi: int, dtype, device=None):
     eye = torch.eye(chi, dtype=dtype, device=device)
     return eye.expand(v, d, chi, chi).clone()
@@ -244,12 +279,14 @@ def _all_except_one(t, messages, slots):
     )
 
 
-def outgoing_messages_einsum(t: torch.Tensor, messages: torch.Tensor):
+def outgoing_messages_einsum(t: torch.Tensor, messages: torch.Tensor,
+                             bra_conj: torch.Tensor | None = None):
     """m_out[u, j] by the op-level chain: all incoming messages but slot
-    j's absorbed, contracted with conj(t) over every other leg."""
+    j's absorbed, contracted with conj(t) over every other leg (or with
+    ``bra_conj``, a pre-conjugated bra layer, on a two-layer sandwich)."""
     D = t.ndim - 2
     accs = _all_except_one(t, messages, list(range(D)))
-    tconj = t.conj()
+    tconj = t.conj() if bra_conj is None else bra_conj
     outs = []
     for j, acc in zip(range(D), accs):
         lab = [_LETTERS[k] for k in range(D)]
@@ -303,8 +340,10 @@ def bp_iteration(spec: BatchedGraphSpec, state: BatchedState,
     return _normalize_messages(gathered, tables.mask)
 
 
-def _message_distance(a, b, mask):
-    """Mean per-edge fidelity distance (`beliefpropagationcache.jl:15-19`)."""
+def _message_distance(a, b, mask, members: int = 1):
+    """Mean per-edge fidelity distance (`beliefpropagationcache.jl:15-19`),
+    one value per ensemble member: the rows of ``a``/``b``/``mask`` are
+    ``members`` stacked copies of the graph's vertices.  Returns [members]."""
     dot = (a.conj() * b).sum(dim=(-2, -1))
     na = torch.linalg.vector_norm(a.flatten(-2), dim=-1)
     nb = torch.linalg.vector_norm(b.flatten(-2), dim=-1)
@@ -312,13 +351,46 @@ def _message_distance(a, b, mask):
     denom = torch.where(nn == 0, torch.ones_like(nn), nn)
     f = (dot / denom).abs() ** 2
     d = torch.where(mask, 1.0 - f, torch.zeros_like(f))
-    return d.sum() / torch.clamp(mask.sum(), min=1)
+    count = mask.reshape(members, -1).sum(-1)
+    return d.reshape(members, -1).sum(-1) / torch.clamp(count, min=1)
 
 
 def default_batched_tolerance(dtype) -> float:
     if dtype in (torch.float32, torch.complex64):
         return 1e-5
     return 1e-8
+
+
+def _fixed_point(iterate, m, mask, maxiter, tolerance, damping,
+                 members: int = 1):
+    """Iterate ``m ← iterate(m)`` (optionally damped) while the mean
+    message change exceeds ``tolerance``, at most ``maxiter`` sweeps.
+
+    The reference's ``lax.while_loop`` becomes a Python loop with the same
+    semantics; reading whether to go on syncs the host with the device once
+    per sweep (a design choice of this port, whose cost is for a later
+    measurement).  With ``members`` > 1 the rows of ``m`` are that many
+    ensemble members' messages stacked, and each member stops on its own
+    distance, as ``jax.vmap`` of the while loop does: a member whose
+    distance fell to the tolerance is frozen while the others go on."""
+    rows = m.shape[0] // members
+    active = torch.ones(members, dtype=torch.bool, device=m.device)
+    for _ in range(maxiter):
+        new = iterate(m)
+        if damping > 0:
+            new = _normalize_messages((1 - damping) * new + damping * m,
+                                      mask, hermitize_=False)
+        go = _message_distance(m, new, mask, members) > tolerance
+        if members > 1:
+            keep = active.repeat_interleave(rows)[:, None, None, None]
+            m = torch.where(keep, new, m)
+            active = active & go
+            go = active.any()
+        else:
+            m = new
+        if not bool(go):
+            break
+    return m
 
 
 def bp_update(
@@ -328,29 +400,22 @@ def bp_update(
     tolerance: float | None = None,
     damping: float = 0.0,
     tables: GraphTables | None = None,
+    members: int = 1,
 ) -> BatchedState:
     """Flooding BP to the fixed point (tolerance on the mean message change,
-    `abstractbeliefpropagationcache.jl:198-222`).
-
-    The reference's ``lax.while_loop`` becomes a Python loop with the same
-    semantics (at most ``maxiter`` sweeps while the distance exceeds the
-    tolerance).  Reading the distance syncs the host with the device once
-    per iteration: a design choice of this port, whose cost is for a
-    later measurement."""
+    `abstractbeliefpropagationcache.jl:198-222`).  ``members`` > 1 runs an
+    ensemble folded into the vertex axis (``tables`` then hold its offset
+    neighbour tables), each member to its own stopping point."""
     if tolerance is None:
         tolerance = default_batched_tolerance(state.tensors.dtype)
     if tables is None:
         tables = graph_tables(spec, state.tensors.device)
-    m = state.messages
-    it, diff = 0, math.inf
-    while it < maxiter and diff > tolerance:
-        new = bp_iteration(spec, state._replace(messages=m), tables)
-        if damping > 0:
-            new = _normalize_messages(
-                (1 - damping) * new + damping * m, tables.mask, hermitize_=False
-            )
-        diff = float(_message_distance(m, new, tables.mask))
-        m, it = new, it + 1
+
+    def iterate(m):
+        return bp_iteration(spec, state._replace(messages=m), tables)
+
+    m = _fixed_point(iterate, state.messages, tables.mask, maxiter,
+                     tolerance, damping, members)
     return state._replace(messages=m)
 
 
@@ -689,3 +754,74 @@ def local_expectations(spec: BatchedGraphSpec, state: BatchedState,
     numer = torch.einsum("vsz,zs->v", rho, op)
     denom = torch.einsum("vss->v", rho)
     return numer / denom
+
+
+def _site_transfer(state: BatchedState, idx: torch.Tensor, skip_slot: int):
+    """E[b, l, l', s, s'] at the given vertices: ψ ψ̄ with all incoming
+    messages absorbed except on ``skip_slot`` (open site legs)."""
+    D = state.degree
+    t = state.tensors[idx]
+    m = state.messages[idx]
+    acc = t
+    for k in range(D):
+        if k != skip_slot:
+            acc = _absorb(acc, m[:, k], 1 + k)
+    lab = [_LETTERS[k] for k in range(D)]
+    acc_lab, conj_lab = list(lab), list(lab)
+    acc_lab[skip_slot] = "o"
+    conj_lab[skip_slot] = "p"
+    eq = f"v{''.join(acc_lab)}s,v{''.join(conj_lab)}z->vopsz"
+    return torch.einsum(eq, acc, t.conj())
+
+
+@functools.lru_cache(maxsize=32)
+def _bond_tables(spec: BatchedGraphSpec, device: torch.device):
+    """The edges bucketed by (slot_u, slot_v), each bucket's endpoint
+    indices as device tensors, and the permutation that puts the buckets'
+    concatenated results back into ``spec.edges`` order: built once per
+    (spec, device)."""
+    buckets: dict = {}
+    for pos, (iu, iv, su, sv) in enumerate(spec.edges):
+        buckets.setdefault((su, sv), []).append((pos, iu, iv))
+    tables, order = [], []
+    for (su, sv), entries in sorted(buckets.items()):
+        tables.append((su, sv, _index([e[1] for e in entries], device),
+                       _index([e[2] for e in entries], device)))
+        order += [e[0] for e in entries]
+    return tuple(tables), _index(np.argsort(order), device)
+
+
+def _bond_transfers(spec: BatchedGraphSpec, state: BatchedState):
+    """[(E_u, E_v)] per bucket and the edge-order permutation."""
+    buckets, inv = _bond_tables(spec, state.tensors.device)
+    return [(_site_transfer(state, u_idx, su), _site_transfer(state, v_idx, sv))
+            for su, sv, u_idx, v_idx in buckets], inv
+
+
+def bond_expectations(spec: BatchedGraphSpec, state: BatchedState, op1,
+                      op2) -> torch.Tensor:
+    """⟨op1 ⊗ op2⟩ for every graph edge, in ``spec.edges`` order (the BP
+    Steiner-tree contraction of `expect.jl:58-83` specialized to an edge,
+    batched over each (slot_u, slot_v) bucket of edges)."""
+    transfers, inv = _bond_transfers(spec, state)
+    vals = []
+    for eu, ev in transfers:
+        o1 = torch.as_tensor(op1).to(dtype=eu.dtype, device=eu.device)
+        o2 = torch.as_tensor(op2).to(dtype=eu.dtype, device=eu.device)
+        numer = torch.einsum("bopsz,zs,bopcx,xc->b", eu, o1, ev, o2)
+        denom = torch.einsum("bopss,bopcc->b", eu, ev)
+        vals.append(numer / denom)
+    return torch.cat(vals)[inv]
+
+
+def bond_rdms(spec: BatchedGraphSpec, state: BatchedState) -> torch.Tensor:
+    """Trace-normalized 2-site RDMs ρ[e, s, s', c, c'] for every graph edge
+    (`rdm.jl:49-70` with alg="bp" on an edge's endpoints).  Index order:
+    (ket_u, bra_u, ket_v, bra_v), edges in ``spec.edges`` order."""
+    transfers, inv = _bond_transfers(spec, state)
+    rhos = []
+    for eu, ev in transfers:
+        rho = torch.einsum("bopsz,bopcx->bszcx", eu, ev)
+        tr = torch.einsum("bsscc->b", rho)
+        rhos.append(rho / tr[:, None, None, None, None])
+    return torch.cat(rhos)[inv]

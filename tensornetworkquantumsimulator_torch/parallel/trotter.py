@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models import channels as _channels
 from ..models import gates as _gates
 from ..utils.graphs import NamedGraph
 from ..utils.lattices import _gate_vertices
@@ -34,8 +35,12 @@ from .engine import (
     apply_color_group,
     apply_one_site,
     bp_update,
+    fold_members,
     graph_tables,
     local_expectations,
+    member_indices,
+    member_tables,
+    unfold_members,
 )
 from .structure import BatchedGraphSpec, SlotPairBucket, compile_graph
 
@@ -54,9 +59,7 @@ class _TwoSiteSegment:
 
 
 class BatchedCircuit:
-    """A tuple circuit compiled against a lattice for batched execution
-    (state-vector picture; the reference's Pauli-transfer pictures are not
-    part of this port yet)."""
+    """A tuple circuit compiled against a lattice for batched execution."""
 
     def __init__(
         self,
@@ -64,7 +67,24 @@ class BatchedCircuit:
         g: NamedGraph,
         spec: BatchedGraphSpec | None = None,
         d: int = 2,
+        heisenberg: bool = False,
+        picture: str | None = None,
     ):
+        """``picture`` selects the transfer-matrix convention on d=4 Pauli
+        sites: "heisenberg" (≡ heisenberg=True, adjoint maps for operator
+        evolution) or "rho" (Schrödinger maps for density-matrix evolution,
+        `models/channels.py`).  Noise-channel names (`channels.is_channel`)
+        are accepted in either picture."""
+        if heisenberg and picture not in (None, "heisenberg"):
+            raise ValueError(
+                f"heisenberg=True contradicts picture={picture!r}"
+            )
+        if picture is None:
+            picture = "heisenberg" if heisenberg else None
+        if picture not in (None, "heisenberg", "rho"):
+            raise ValueError(f"unknown picture {picture!r}")
+        if picture is not None and d != 4:
+            raise ValueError("PTM pictures need d=4 Pauli sites")
         self.spec = spec if spec is not None else compile_graph(g)
         self.d = d
         pos = {v: i for i, v in enumerate(self.spec.vertices)}
@@ -131,7 +151,19 @@ class BatchedCircuit:
             name = gate[0]
             verts = _gate_vertices(gate[1])
             param = gate[2] if len(gate) > 2 else None
-            mat = np.asarray(_gates.gate_matrix(name, param))
+            if picture is None:
+                mat = np.asarray(_gates.gate_matrix(name, param))
+            elif _channels.is_channel(name):
+                mat = _channels.channel_ptm(
+                    name, param, nsites=len(verts),
+                    heisenberg=(picture == "heisenberg"),
+                )
+            elif picture == "heisenberg":
+                mat = np.array(_gates._ptm_cached(name[1:].upper(),
+                                                  float(param)))
+            else:
+                mat = np.array(_gates._ptm_schrodinger_cached(
+                    name, None if param is None else float(param)))
             if len(verts) == 1:
                 flush_two_run()
                 if one_site is None:
@@ -156,6 +188,11 @@ class BatchedCircuit:
         flush_two_run()
         flush_one_site()
         self.segments = tuple(segments)
+
+
+def _per_member(x: torch.Tensor, members: int) -> torch.Tensor:
+    """Rows of ``x`` repeated once per ensemble member (member-major)."""
+    return x if members == 1 else x.repeat((members,) + (1,) * (x.ndim - 1))
 
 
 class TrotterLayer(nn.Module):
@@ -203,34 +240,62 @@ class TrotterLayer(nn.Module):
     def _buffer(self, name: str, array: np.ndarray) -> None:
         self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(array)))
 
-    def _refresh(self, state: BatchedState, tables: GraphTables):
-        return bp_update(self.spec, state, tables=tables, **self.bp_kwargs)
-
     def forward(self, state: BatchedState):
-        tables = GraphTables(self.nbr, self.nbr_slot, self.mask)
+        state, errs = self._run(state, 1)
+        return state, errs[0]
+
+    def ensemble(self, estate: BatchedState, params=(), axes=()):
+        """E stacked states ``estate`` ([E, V, ...]) through the layer in
+        one batched program (the members folded into the vertex axis, BP
+        stopping per member).  Returns (estate, errors [E, n])."""
+        if params:
+            raise TypeError("a compiled layer takes no arguments besides "
+                            "the state")
+        E = estate.tensors.shape[0]
+        state, errs = self._run(fold_members(estate), E)
+        return unfold_members(state, E), errs
+
+    def _run(self, state: BatchedState, E: int):
+        V = self.spec.num_vertices
+        tables = member_tables(GraphTables(self.nbr, self.nbr_slot, self.mask),
+                               E, V)
+
+        def refresh(st):
+            return bp_update(self.spec, st, tables=tables, members=E,
+                             **self.bp_kwargs)
+
         errs = []
         for step in self._plan:
-            if step[0] == "one":
-                state = apply_one_site(state, getattr(self, step[1]))
+            if step[0] == "one":  # [V, d, d], one copy per member
+                state = apply_one_site(state, _per_member(
+                    getattr(self, step[1]), E))
                 continue
             _, needs_refresh, buckets, gate_names = step
             if needs_refresh:
-                state = self._refresh(state, tables)
-            bks = [SlotPairBucket(su, sv, getattr(self, un), getattr(self, vn))
+                state = refresh(state)
+            bks = [SlotPairBucket(su, sv,
+                                  member_indices(getattr(self, un), E, V),
+                                  member_indices(getattr(self, vn), E, V))
                    for (su, sv, un, vn) in buckets]
-            groups = [(bks, gate_names[0])] if len(gate_names) == 1 else [
-                ((b,), gn) for b, gn in zip(bks, gate_names)]
-            for group, gn in groups:
+            gates = [getattr(self, gn) for gn in gate_names]
+            if gates[0].ndim == 4:  # one [d, d, d, d] gate for every edge
+                groups = [(bks, gates[0])]
+            else:  # per-edge gates [B, ...], one copy per member
+                groups = [((b,), _per_member(gate, E))
+                          for b, gate in zip(bks, gates)]
+            for group, gate in groups:
                 state, err = apply_color_group(
-                    state, group, getattr(self, gn), self.chi, self.cutoff,
+                    state, group, gate, self.chi, self.cutoff,
                     self.normalize_tensors,
                 )
-                errs.append(err)
+                # errors come bucket by bucket, each member-major
+                sizes = [len(b.u_idx) for b in group]
+                errs += [e.reshape(E, -1) for e in err.split(sizes)]
         if self.final_update:
-            state = self._refresh(state, tables)
+            state = refresh(state)
         if not errs:
-            return state, torch.zeros((0,), device=state.tensors.device)
-        return state, torch.cat(errs)
+            return state, torch.zeros((E, 0), device=state.tensors.device)
+        return state, torch.cat(errs, dim=1)
 
 
 def make_layer_fn(

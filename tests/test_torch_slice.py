@@ -136,3 +136,42 @@ def test_tfim_3x3_vs_dense_oracle(default_knobs):
         assert float(errs.max()) < 1e-12
         traj.append(float(z_fn(state)[pos]))
     np.testing.assert_allclose(traj, golden, atol=5e-5)
+
+
+_BOND_CASES = {
+    # (lattice, dtype): the reference test's float64 grid, and a degree-3
+    # lattice whose edges fall into several (slot_u, slot_v) buckets
+    "grid3x3_float64": (lambda lat: lat.named_grid((3, 3)), np.float64),
+    "heavyhex1x1_complex128": (lambda lat: lat.heavy_hexagonal_lattice(1, 1),
+                               np.complex128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BOND_CASES))
+def test_bond_observables_match_jax(case):
+    """`tests/test_batched.py::test_batched_bond_expectations` on the port:
+    a random χ=3 state carried across, BP run by each package, then
+    ⟨Z⊗Z⟩ on every edge and the bond RDMs, in ``spec.edges`` order."""
+    from tensornetworkquantumsimulator_tpu import random_tensornetworkstate
+
+    make_graph, dtype = _BOND_CASES[case]
+    g = make_graph(j_lat)
+    psi = random_tensornetworkstate(dtype, g, bond_dimension=3)
+    spec_j, st_j = jp.batched_from_tns(psi, chi=3)
+    spec_t = tt.compile_graph(make_graph(tt))
+    st_t = tt.parallel.state_from_numpy(np.asarray(st_j.tensors),
+                                        np.asarray(st_j.messages))
+    st_j = jp.bp_update(spec_j, st_j, maxiter=150, tolerance=1e-14)
+    st_t = tt.bp_update(spec_t, st_t, maxiter=150, tolerance=1e-14)
+
+    zz_j = np.asarray(jp.bond_expectations(spec_j, st_j, _Z, _Z))
+    zz_t = tt.parallel.bond_expectations(spec_t, st_t, _Z, _Z).numpy()
+    assert zz_t.shape == (len(spec_t.edges),)
+    np.testing.assert_allclose(zz_t, zz_j, atol=1e-8)
+
+    rho_j = np.asarray(jp.engine.bond_rdms(spec_j, st_j))
+    rho_t = tt.parallel.bond_rdms(spec_t, st_t).numpy()
+    np.testing.assert_allclose(rho_t, rho_j, atol=1e-8)
+    # the RDMs and the expectations are one contraction read two ways
+    zz = np.einsum("esxcy,xs,yc->e", rho_t, _Z, _Z)
+    np.testing.assert_allclose(zz, zz_t, atol=1e-10)
