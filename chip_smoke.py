@@ -8,18 +8,19 @@ CUDA toolkit (``nvcc``)::
 
 Phases, each printing its checks and seconds:
 
-1. device: the card's name and power limit (``nvidia-smi``), the ``nvcc``
-   version, the colour-group bucket sizes of each grid configuration and
-   the process's ``PYTHONHASHSEED`` (the vendored edge colouring follows
-   string hashing); then the CUDA kernels are built from ``csrc/``, one
-   ``nvcc`` per source, all started together;
+1. device: a product state and a layer built with no ``device=`` argument
+   (the entry points default to CUDA), the card's name and power limit
+   (``nvidia-smi``), the ``nvcc`` version, the colour-group bucket sizes of
+   each grid configuration and the process's ``PYTHONHASHSEED`` (the
+   vendored edge colouring follows string hashing); then the CUDA kernels
+   are built from ``csrc/``, one ``nvcc`` per source, all started together;
 2. each kernel against its plain PyTorch version on the card, inputs made
    from a numpy seed, at the main path's shapes among others: K1
    ``jacobi_pseudo_roots`` at [72,10,10], K2 ``jacobi_eigh`` on full-rank
    and rank-deficient PSD batches at [12,40,40] and [200,64,64], K3
-   ``bp_outgoing_d3`` at [127,64,64,64,2], K4 ``complex_matmul`` against
-   its plain version and a complex128 numpy A@B on five shapes (a ragged
-   one among them);
+   ``bp_outgoing_d3`` at [127,8,8,8,2] and [127,64,64,64,2], K4
+   ``complex_matmul`` against its plain version and a complex128 numpy A@B
+   on six shapes (a ragged one and [8,512,512] among them);
 3. main path, ``chi10``: 5x5 TFIM at χ=10, five layers on the fast stack
    (Jacobi eigh, gram split, CholeskyQR2); K1 and K2 must launch, and ⟨Z⟩
    must agree with the same layers on the library eigh to 1e-4.  The
@@ -54,17 +55,26 @@ Phases, each printing its checks and seconds:
 10. ``microbench``: every op of ``tensornetworkquantumsimulator_torch.
    microbench`` at its sweep shapes (16,40) and (8,128), with small M
    points; ``cpallas`` must launch K4;
-11. times (CUDA events, after warm-up): layers/s of chi10, chi64 and
-   chi10_rolled with the kernels on and off, and each kernel against its
-   plain version (K4 also against cuBLAS's ``a @ b``) on the
-   main-path-shape batches of phase 2.
+11. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
+   and off (CUDA events, after warm-up), chi64 with K3 off / on / on / off;
+   then each kernel on the batches of phase 2 that have the main path's
+   shapes (K4: the microbenchmark's and [8,512,512]): its call time (host
+   and device, CUDA events around back-to-back calls), its device time
+   alone (a CUDA graph of the calls replayed between two events), its
+   plain version's call time, the one PyTorch call that computes the same
+   function where there is one (K4 ``a @ b``, K2 ``torch.linalg.eigh`` on
+   full-rank batches) with its call and device time, and its bound (see
+   ``bound``, with the counts); K4 also the host path of its call and of
+   ``a @ b``, K3 its peak memory.
 
 Each main path (chi10, chi64, rolled, ensemble, noisy, microbench) runs
 with every launch counter set to 0 just before it and read just after.
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
-exits non-zero and prints no result; it also exits non-zero when no CUDA
-device is visible.
+The line before the last is ``{"kernels": [...]}`` (with launches per path
+and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
+``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
+last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
+so the script exits non-zero and prints no result; it also exits non-zero
+when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -128,6 +138,122 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_us(fn, reps: int) -> float:
+    """Host microseconds per call to enqueue ``reps`` calls back to back
+    (host clock, no synchronize inside): the call's host path alone."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def device_ms(fn, reps: int, capturable: bool = True) -> tuple:
+    """(mean device milliseconds per call, how it was measured): a CUDA
+    graph of ``reps`` calls replayed between two events, so no host work
+    sits between the launches; for a call that cannot be captured (a
+    library call that synchronizes: ``capturable=False``), the CUDA kernel
+    time ``torch.profiler`` records over ``reps`` calls, provided it
+    recorded ``reps`` times the kernels of one call (else None: the
+    profiler lost events)."""
+    fn()
+    torch.cuda.synchronize()
+    if capturable:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, "graph"
+    one, _ = profiled(fn, 1)
+    kernels, us = profiled(fn, reps)
+    if kernels < reps * one or us <= 0:
+        return None, (f"not measured: the profiler recorded {kernels} "
+                      f"kernels for {reps} x {one}")
+    return us / 1e3 / reps, "profiler"
+
+
+def profiled(fn, reps: int) -> tuple:
+    """(CUDA kernels, their microseconds) torch.profiler records over
+    ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(getattr(e, "device_time_total", 0.0) for e in events))
+
+
+# H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
+# TF32 on the tensor cores, device memory
+PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(k: str, args) -> dict:
+    """The least time the card could take for kernel k's work on ``args``,
+    on the unit the kernel runs on: the larger of its bytes (each input
+    read once, each output written once) over 3.35 TB/s and its operations
+    over the unit's peak.  K1 and K2 run in fp32 outside the tensor cores:
+    real flops over 67 TFLOP/s, eigh counted as 9 n^3 real flops, times 4
+    for complex (the Hermitian QR algorithm with vectors), K1 adding its two
+    reconstructions U f(w) U†.  K3 and K4 run on the tensor cores with a
+    3xTF32 split: their least work is the Gauss form's, three real products
+    of three TF32 products each, 18 TF32 flops per complex multiply-add,
+    over 495 TFLOP/s.  For those two, ``fp32_bound_ms`` is the same product
+    at the reference's fp32 outside the tensor cores (8 real flops per
+    complex multiply-add, the 4-product form, over 67 TFLOP/s)."""
+    macs = None
+    if k == "K4":
+        a, b = args
+        B, N, K = a.shape
+        macs = B * N * K * b.shape[2]
+        nbytes = 8 * B * (N * K + K * b.shape[2] + N * b.shape[2])
+    elif k == "K3":
+        t, m = args
+        V, chi, d = t.shape[0], t.shape[1], t.shape[-1]
+        macs = 8 * V * chi**4 * d  # five absorbs, three contractions
+        nbytes = t.numel() * 8 + m.numel() * 8 + V * 3 * chi * chi * 8
+    else:
+        (a,) = args
+        B, n = a.shape[0], a.shape[-1]
+        if k == "K2":
+            flops, nbytes = 36 * B * n**3, B * (2 * n * n * 8 + n * 4)
+        else:
+            flops, nbytes = (36 + 16) * B * n**3, 3 * B * n * n * 8
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    if macs is None:
+        unit, t_ops = "fp32", flops / PEAK_FP32 * 1e3
+        out = {}
+    else:
+        flops = 18 * macs
+        unit, t_ops = "3xTF32", flops / PEAK_TF32 * 1e3
+        out = {"fp32_bound_ms": max(8 * macs / PEAK_FP32 * 1e3, t_bytes)}
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "unit": unit, "flops": flops, "bytes": nbytes, **out}
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def to_np(x: torch.Tensor) -> np.ndarray:
@@ -323,15 +449,17 @@ def check_k3(dev, rng, cb) -> list:
 
 K4_SHAPES = (((8, 128, 128), (8, 128, 128)), ((16, 40, 40), (16, 40, 40)),
              ((3, 128, 128), (3, 128, 128)), ((2, 64, 128), (2, 128, 256)),
-             ((5, 33, 17), (5, 17, 65)))
-K4_MICROBENCH = ("8x128x128@8x128x128", "16x40x40@16x40x40")
+             ((5, 33, 17), (5, 17, 65)), ((8, 512, 512), (8, 512, 512)))
+# timed: the microbenchmark's shapes, and a batch whose device time is above
+# launch scale
+K4_TIMED = ("8x128x128@8x128x128", "16x40x40@16x40x40", "8x512x512@8x512x512")
 
 
 def check_k4(dev, rng, cm) -> list:
     """Bar of tests/test_pallas_kernels.py:24,39, max|C - A@B| / max|A@B|
     < 1e-5, against a complex128 numpy A@B and against the plain version,
-    on the reference tests' shapes, the microbenchmark's and a ragged one.
-    Returns the comparisons at the microbenchmark's shapes."""
+    on the reference tests' shapes, the microbenchmark's, a ragged one and
+    [8,512,512].  Returns the comparisons at the timed shapes."""
     entries = []
     for sa, sb in K4_SHAPES:
         a = (rng.standard_normal(sa) + 1j * rng.standard_normal(sa)).astype(
@@ -353,7 +481,7 @@ def check_k4(dev, rng, cm) -> list:
             f"{entry['rel']:.3e} (bar 1e-5)")
         log("k4", f"{label}: scaled error vs complex128 {e_ref:.2e} (plain "
                   f"{e_plain_ref:.2e}), vs plain {entry['rel']:.2e} (bar 1e-5)")
-        if label in K4_MICROBENCH:
+        if label in K4_TIMED:
             entries.append(entry)
     return entries
 
@@ -924,6 +1052,15 @@ def colour_groups(tt) -> None:
                       f"group: {sizes}; PYTHONHASHSEED {seed}")
 
 
+# layers each counted main path runs (the ensemble's of 8 members)
+LAYERS = {"chi10": 5, "chi64": 2, "rolled": 10, "ensemble": ENSEMBLE_LAYERS,
+          "noisy": NOISY_LAYERS}
+TIMES_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+              "unit", "fp32_bound_ms", "flops", "bytes", "library_ms",
+              "library_device_ms", "host_us", "library_host_us",
+              "peak_extra_mib")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -944,7 +1081,15 @@ def main() -> int:
         log(phase, f"phase seconds {now - t_phase:.1f}")
         t_phase = now
 
-    # 1. device, colour groups and build
+    # 1. device, the entry points' default device, colour groups and build
+    g = tt.named_grid((2, 2))
+    _, st = tt.batched_product_state(g, chi=2)
+    layer = tt.make_layer_fn(tt.BatchedCircuit(
+        [("Rx", [v], 0.1) for v in g.vertices()], g), chi=2)
+    assert st.tensors.is_cuda and layer.mask.is_cuda, (
+        st.tensors.device, layer.mask.device)
+    log("device", f"built with no device= argument: state on "
+                  f"{st.tensors.device}, layer module on {layer.mask.device}")
     dev = tt.select_device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -982,8 +1127,9 @@ def main() -> int:
                "K3": (cb, "bp_outgoing_d3")}
     paths = {}
     for name, n, env, required in (
-            ("chi10", 5, FAST_STACK, ("K1", "K2")),
-            ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1"), ("K2", "K3"))):
+            ("chi10", LAYERS["chi10"], FAST_STACK, ("K1", "K2")),
+            ("chi64", LAYERS["chi64"], dict(FAST_STACK, TNQS_BP_KERNEL="1"),
+             ("K2", "K3"))):
         paths[name], seen, _ = main_path(
             counters, name,
             lambda env, name=name, n=n: run_layers(tt, dev, name, n, env),
@@ -1000,7 +1146,8 @@ def main() -> int:
     rolled = {}
 
     def run_rolled_z(env):
-        rolled[env["TNQS_EIGH_ALG"]] = run_rolled(tt, dev, 10, env)
+        rolled[env["TNQS_EIGH_ALG"]] = run_rolled(tt, dev, LAYERS["rolled"],
+                                                  env)
         return rolled[env["TNQS_EIGH_ALG"]][2]
 
     paths["rolled"], seen, _ = main_path(counters, "rolled", run_rolled_z,
@@ -1037,25 +1184,88 @@ def main() -> int:
     log("times", f"ensemble of {ENSEMBLE} rolled members: {t_ens * 1e3:.1f} "
                  f"ms per ensemble layer vs {t_single * 1e3:.1f} ms per "
                  f"single-member layer (host clock, distance recording on)")
+    # chi64 with K3 against the same stack without it, in turns
+    k3_on = dict(FAST_STACK, TNQS_BP_KERNEL="1")
+    ab = [layers_per_second(tt, dev, "chi64", 2, env)
+          for env in (FAST_STACK, k3_on, k3_on, FAST_STACK)]
+    log("times", f"chi64 K3 off / on / on / off: "
+                 f"{' / '.join(f'{r:.3f}' for r in ab)} layers/s (2 layers "
+                 f"after one warm-up, fast stack otherwise)")
     plain = {"K1": cl.pseudo_roots_plain, "K2": cl.eigh_plain,
              "K3": cb.bp_outgoing_plain, "K4": cm.complex_matmul_plain}
     wrapper = {"K1": cl.jacobi_pseudo_roots, "K2": cl.jacobi_eigh,
                "K3": cb.bp_outgoing_d3, "K4": cm.complex_matmul}
-    reps = {"K1": 50, "K2": 20, "K3": 5, "K4": 100}
+    # the one PyTorch call that computes the same function, where there is
+    # one (K2: on full-rank batches only, where cuSOLVER converges)
+    library = {"K2": torch.linalg.eigh, "K4": torch.matmul}
+    reps = {"K1": 50, "K2": 20, "K3": 5, "K4": 500}
+    # torch.profiler stays attached once used and slows every launch after
+    # it, so its measurements come after all call and graph timings
+    profiled_later = []
     for k, entries in shaped.items():
         for e in entries:
-            e["ms"] = time_ms(lambda: wrapper[k](*e["args"]), reps[k])
-            e["plain_ms"] = time_ms(lambda: plain[k](*e["args"]), reps[k])
+            args = e["args"]
+            e.update(bound(k, args))
+            # default arguments bind this entry: some calls run later
+            call = lambda k=k, args=args: wrapper[k](*args)  # noqa: E731
+            e["ms"] = time_ms(call, reps[k])
+            e["device_ms"], how = device_ms(call, reps[k])
+            e["plain_ms"] = time_ms(lambda: plain[k](*args), reps[k])
+            e["library_ms"] = e["library_device_ms"] = None
+            lib = "none"
+            full_rank = k != "K2" or e["shape"].endswith(
+                f"rank {args[0].shape[-1]}")
+            if k in library and full_rank:
+                lib_call = lambda k=k, args=args: library[k](*args)  # noqa: E731
+                try:  # the library calls alone: cuSOLVER may not converge
+                    e["library_ms"] = time_ms(lib_call, reps[k])
+                    if k == "K2":  # synchronizes: profiler, after the rest
+                        profiled_later.append((k, e, lib_call))
+                        lib_how = "profiler, below"
+                    else:
+                        e["library_device_ms"], lib_how = device_ms(
+                            lib_call, reps[k])
+                        e["library_host_us"] = enqueue_us(lib_call, reps[k])
+                    lib = (f"{e['library_ms']:.4f} ms call, "
+                           f"{fmt_ms(e['library_device_ms'])} device "
+                           f"({lib_how})")
+                except RuntimeError as err:
+                    lib = f"failed ({str(err).splitlines()[0][:60]})"
+            if k == "K4":
+                e["host_us"] = enqueue_us(call, reps[k])
+                lib += (f"; host path per call {e['host_us']:.1f} us (a @ b "
+                        f"{e.get('library_host_us', float('nan')):.1f} us)")
             extra = ""
             if k == "K2":
-                raw = time_ms(lambda: cl.jacobi_eigh_raw(*e["args"]), reps[k])
-                extra = f" (kernel alone {raw:.4f} ms)"
-            if k == "K4":
-                a, b = e["args"]
-                e["cublas_ms"] = time_ms(lambda: a @ b, reps[k])
-                extra = f", cuBLAS a @ b {e['cublas_ms']:.4f} ms"
-            log("times", f"{k} {e['shape']}: kernel {e['ms']:.4f} ms, "
-                         f"plain {e['plain_ms']:.4f} ms{extra}")
+                raw = time_ms(lambda: cl.jacobi_eigh_raw(*args), reps[k])
+                extra = f"; kernel alone {raw:.4f} ms"
+            if k == "K3":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                call()
+                torch.cuda.synchronize()
+                e["peak_extra_mib"] = (torch.cuda.max_memory_allocated()
+                                       - base) / 2**20
+                V, chi, d = (args[0].shape[i] for i in (0, 1, -1))
+                extra = (f"; peak memory above its inputs "
+                         f"{e['peak_extra_mib']:.1f} MiB; (chunk, splits) "
+                         f"{cb.launch_plan(V, chi, d)}")
+            fp32 = (f", {e['fp32_bound_ms']:.3g} ms at fp32 outside the "
+                    f"tensor cores" if "fp32_bound_ms" in e else "")
+            log("times", f"{k} {e['shape']}: call {e['ms']:.4f} ms, device "
+                         f"{fmt_ms(e['device_ms'])} ({how}); plain call "
+                         f"{e['plain_ms']:.4f} ms; library {lib}; bound "
+                         f"{e['bound_ms']:.3g} ms by {e['bound_by']} "
+                         f"({e['flops']:.3g} {e['unit']} flops, "
+                         f"{e['bytes']:.3g} B){fp32}{extra}")
+    for k, e, fn in profiled_later:
+        try:
+            e["library_device_ms"], how = device_ms(fn, 3, capturable=False)
+        except RuntimeError as err:  # cuSOLVER did not converge
+            how = f"failed ({str(err).splitlines()[0][:60]})"
+        log("times", f"{k} {e['shape']}: library device "
+                     f"{fmt_ms(e['library_device_ms'])} ({how})")
     done("times")
 
     meta = {
@@ -1081,20 +1291,22 @@ def main() -> int:
     kernels = []
     for k, (name, source, replaces) in meta.items():
         entries = shaped[k]
+        first = entries[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[k],
             "paths": {p: counts[k] for p, counts in paths.items()},
+            "per_layer": {p: paths[p][k] / n for p, n in LAYERS.items()},
             "max_abs_err": max(e["abs"] for e in entries),
             "max_rel_err": max(e["rel"] for e in entries),
             "compared": what[k],
             **({"max_rel_err_vs_complex128": max(e["ref"] for e in entries)}
                if k == "K4" else {}),
-            "ms": entries[0]["ms"], "plain_ms": entries[0]["plain_ms"],
-            "shape": entries[0]["shape"],
-            "times": [{k2: e[k2] for k2 in ("shape", "ms", "plain_ms",
-                                            "cublas_ms") if k2 in e}
-                      | {"max_abs_err": e["abs"]} for e in entries],
+            "shape": first["shape"],
+            **{key: first.get(key) for key in TIMES_KEYS},
+            "times": [{key: e[key] for key in ("shape",) + TIMES_KEYS
+                       if key in e} | {"max_abs_err": e["abs"]}
+                      for e in entries],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

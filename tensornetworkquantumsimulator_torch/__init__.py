@@ -6,10 +6,11 @@ Trotter-layer path: lattice → slot tables → product state → compiled
 layer (flooding BP + fused colour-group simple update) → BP ⟨Z⟩.  Its
 Pallas kernels are hand-written CUDA for Hopper (``csrc/``), built with
 ``nvcc`` at first use.  The package imports ``torch`` and never ``jax``.
+Its entry points run on CUDA unless asked for another device
+(``device=``, or :func:`set_default_device`).
 """
 
-import torch
-
+from .devices import select_device, set_default_device
 from .models import gate_matrix, op_matrix, state_vector
 from .parallel import (
     BatchedCircuit,
@@ -31,16 +32,6 @@ from .utils import (
 )
 
 
-def select_device(name: str = "cuda") -> torch.device:
-    """The device to run on, with float32 matmuls at full precision: no
-    TF32 in cuBLAS (complex GEMM included) or cuDNN, as the reference runs
-    every einsum at ``Precision.HIGHEST``."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    return torch.device(name)
-
-
 __all__ = [
     "BatchedCircuit",
     "BatchedState",
@@ -59,5 +50,6 @@ __all__ = [
     "named_grid",
     "op_matrix",
     "select_device",
+    "set_default_device",
     "state_vector",
 ]

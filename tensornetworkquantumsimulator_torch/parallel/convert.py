@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from ..models.sites import pauli_coefficients, state_vector
 from .engine import BatchedState
 from .structure import BatchedGraphSpec, compile_graph
@@ -32,7 +33,8 @@ def batched_product_state(
 ) -> tuple:
     """A product-state :class:`BatchedState`, built host-side in numpy and
     copied to ``device`` once.  ``state_fn`` maps a vertex to a state
-    string ("↑", "X+", ...) or vector; default is all-up.  With ``d=4`` the
+    string ("↑", "X+", ...) or vector; default is all-up.  ``device=None``
+    is the package's default device (CUDA).  With ``d=4`` the
     sites are density-matrix Pauli sites: a string names a one-site state
     ("0", "+", "mixed", ...) and becomes its coefficient vector
     [Tr ρ, Tr ρX, Tr ρY, Tr ρZ], as in the JAX package's
@@ -64,8 +66,10 @@ def state_from_numpy(tensors: np.ndarray, messages: np.ndarray,
                      device=None) -> BatchedState:
     """A :class:`BatchedState` from numpy arrays (e.g. a JAX state's
     ``np.asarray(state.tensors)``, ``np.asarray(state.messages)``), single
-    or stacked.  The arrays are copied: a JAX array's host view is
-    read-only, and the port's layers write into their own buffers."""
+    or stacked, on ``device`` (None: the package's default, CUDA).  The
+    arrays are copied: a JAX array's host view is read-only, and the
+    port's layers write into their own buffers."""
+    device = resolve_device(device)
     return BatchedState(
         torch.tensor(np.asarray(tensors), device=device),
         torch.tensor(np.asarray(messages), device=device),

@@ -42,9 +42,8 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh": (_P, _P, _P, _I, _I, _I, _P),
     # (a, root, inv_root, batch, n, max_sweeps, stream)
     "tnqs_jacobi_pseudo_roots": (_P, _P, _P, _I, _I, _I, _P),
-    # (t, messages, out, scratch0, scratch1, partial, V, chi, d, splitk,
-    #  stream)
-    "tnqs_bp_outgoing_d3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (t, messages, out, scratch, partial, V, chi, d, chunk, splits, stream)
+    "tnqs_bp_outgoing_d3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (a, b, c, batch, n, k, m, stream)
     "tnqs_complex_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -150,15 +149,21 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+_entries: dict = {}  # name -> bound C function, looked up once
+
+
 def launch(name: str, *args) -> None:
     """Call one C entry point on PyTorch's current stream; raise on a
     non-zero ``cudaGetLastError`` (a refused launch never runs, and a
-    later synchronize would not report it)."""
+    later synchronize would not report it).  After the first call the
+    bound function is a dictionary lookup, with no lock: at small shapes
+    the host path is the cost of a call."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    lib = library()
-    err = getattr(lib, name)(*args, stream)
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        msg = lib.tnqs_error_string(err).decode()
+        msg = library().tnqs_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

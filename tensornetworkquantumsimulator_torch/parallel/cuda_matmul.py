@@ -4,7 +4,13 @@ The counterpart of ``tensornetworkquantumsimulator_tpu.parallel.
 pallas_kernels.complex_matmul``: C = A @ B per batch element from three
 real products on the re/im planes, P1 = Ar·Br, P2 = Ai·Bi,
 P3 = (Ar+Ai)(Br+Bi), Cr = P1 − P2, Ci = P3 − P1 − P2, accumulated in fp32
-and cast back to ``a.dtype``.  The kernel lives in ``csrc/complex_matmul.cu``.
+and cast back to ``a.dtype``.  The kernel lives in ``csrc/complex_matmul.cu``
+and runs the products on the tensor cores with a 3xTF32 split
+(``csrc/complex_tf32x3.cuh``, in its Gauss form).
+
+At the microbenchmark's shapes the call is the cost, so the CUDA path is
+short: the bound C function is looked up once (``cuda_build.launch``),
+and contiguous, unconjugated operands are passed as they are.
 
 No engine path calls it, as in the JAX package: its caller is the
 factorization microbenchmark (``microbench``, op ``cpallas``), where it is
@@ -61,7 +67,11 @@ def complex_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return c
     if K == 0:
         return c.zero_()
-    a, b = a.resolve_conj().contiguous(), b.resolve_conj().contiguous()
+    # the short path: no copies for contiguous, unconjugated operands
+    if a.is_conj() or not a.is_contiguous():
+        a = a.resolve_conj().contiguous()
+    if b.is_conj() or not b.is_contiguous():
+        b = b.resolve_conj().contiguous()
     cuda_build.launch("tnqs_complex_matmul", a.data_ptr(), b.data_ptr(),
                       c.data_ptr(), B, N, K, M)
     matmul_launches.count += 1

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from .cuda_linalg import (
     clip_roots,
     eigh_plain,
@@ -245,7 +246,9 @@ def member_tables(tables: GraphTables, members: int,
 
 
 def identity_messages(v: int, d: int, chi: int, dtype, device=None):
-    eye = torch.eye(chi, dtype=dtype, device=device)
+    """Identity messages [v, d, χ, χ] on ``device`` (None: the package's
+    default, CUDA)."""
+    eye = torch.eye(chi, dtype=dtype, device=resolve_device(device))
     return eye.expand(v, d, chi, chi).clone()
 
 

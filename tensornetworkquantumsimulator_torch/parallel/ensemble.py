@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..devices import resolve_device
 from ..models.gates import _kron_pauli
 from .engine import (
     BatchedState,
@@ -429,7 +430,8 @@ def make_field_layer_fn(
       angle of the 2-site rotation applied per edge-colour group with a BP
       refresh before each group (`apply_gates.jl:60-85` amortization).
 
-    ``jit`` is accepted for signature parity and changes nothing."""
+    ``jit`` is accepted for signature parity and changes nothing.  The
+    module lives on ``device`` (None: the package's default, CUDA)."""
     del jit
     if spec is None:
         spec = compile_graph(g)
@@ -441,7 +443,7 @@ def make_field_layer_fn(
         bp_maxiter=bp_maxiter, bp_tolerance=bp_tolerance,
         bp_damping=bp_damping, final_update=final_update,
     )
-    return spec, (layer.to(device) if device is not None else layer)
+    return spec, layer.to(resolve_device(device))
 
 
 def _ptm_rot_schrodinger(gen, angle):
@@ -479,7 +481,9 @@ def make_noisy_field_layer_fn(
       applied as Schrödinger PTMs (:func:`ptm_rot`);
     - ``noise_params``: scalar, ``[C]`` or ``[C, V]``: one rate per channel
       name in ``noise`` (:data:`TRACEABLE_CHANNELS`), applied after the
-      unitary part as one composed per-vertex 4×4 transfer matrix."""
+      unitary part as one composed per-vertex 4×4 transfer matrix.
+
+    The module lives on ``device`` (None: the package's default, CUDA)."""
     del jit
     if spec is None:
         spec = compile_graph(g)
@@ -496,7 +500,7 @@ def make_noisy_field_layer_fn(
         bp_maxiter=bp_maxiter, bp_tolerance=bp_tolerance,
         bp_damping=bp_damping, final_update=final_update,
     )
-    return spec, (layer.to(device) if device is not None else layer)
+    return spec, layer.to(resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..devices import resolve_device
 from ..models import channels as _channels
 from ..models import gates as _gates
 from ..utils.graphs import NamedGraph
@@ -316,11 +317,12 @@ def make_layer_fn(
     ``jit`` and ``scan_groups`` are accepted for signature parity with the
     JAX package and change nothing: PyTorch runs eagerly, and the scanned
     layer existed only to shrink TPU compiles (it is test-equivalent to the
-    unrolled one)."""
+    unrolled one).  The module lives on ``device`` (None: the package's
+    default, CUDA)."""
     del jit, scan_groups
     layer = TrotterLayer(circuit, chi, cutoff, normalize_tensors, bp_maxiter,
                          bp_tolerance, bp_damping, final_update)
-    return layer.to(device) if device is not None else layer
+    return layer.to(resolve_device(device))
 
 
 def make_expectation_fn(spec: BatchedGraphSpec, op: np.ndarray,

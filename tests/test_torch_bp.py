@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 from tensornetworkquantumsimulator_torch.parallel import cuda_bp as tb
 from tensornetworkquantumsimulator_torch.parallel import engine as te
 from tensornetworkquantumsimulator_torch.parallel import structure as ts
@@ -17,6 +18,14 @@ from tensornetworkquantumsimulator_tpu.parallel import structure as js
 from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
 
 
 def _random_state(rng, V, chi, d, D=3, dtype=np.complex64):
@@ -64,6 +73,25 @@ def test_kernel_gate_and_routing(monkeypatch):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     with pytest.raises(ValueError):
         tb.bp_outgoing_d3(state.tensors[:, :2], state.messages)
+
+
+@pytest.mark.parametrize("V,chi,d", [(127, 64, 2), (127, 8, 2), (3, 100, 2),
+                                     (5, 33, 4), (1, 1, 1)])
+def test_launch_plan_bounds_the_scratch_and_leaves_no_split_empty(V, chi, d):
+    chunk, splits = tb.launch_plan(V, chi, d)
+    assert 1 <= chunk <= V and 1 <= splits <= chi
+    # the scratch holds one chunk of vertices: at most 64 MiB, or one vertex
+    assert chunk == 1 or chunk * chi**3 * d * 8 <= 64 << 20
+    rlen = -(-chi // splits)
+    assert (splits - 1) * rlen < chi  # every split has an outer index
+    if (V, chi, d) == (127, 64, 2):
+        assert (chunk, splits) == (16, 8)
+
+
+def test_kernel_gate_takes_physical_dims_up_to_four():
+    assert all(tb.bp_kernel_supported(3, 8, d, torch.complex64, 4)
+               for d in (1, 2, 3, 4))
+    assert not tb.bp_kernel_supported(3, 8, 5, torch.complex64, 4)
 
 
 @pytest.mark.parametrize("name", ["heavyhex2x2", "grid3x3"])

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 import tensornetworkquantumsimulator_torch as tt
 from tensornetworkquantumsimulator_torch.parallel import engine as t_engine
 from tensornetworkquantumsimulator_torch.parallel import ensemble as te
@@ -30,6 +31,15 @@ from tensornetworkquantumsimulator_tpu import parallel as jp
 from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
+
 
 _Z = op_matrix("Z", 2)
 _REPO = Path(__file__).resolve().parents[1]

@@ -8,9 +8,19 @@ import numpy as np
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 from test_torch_slice import _KNOBS, _run_jax, _run_torch
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
+
 
 _VARIANTS = {
     "qr_defer": {"TNQS_QR_ALG": "defer"},

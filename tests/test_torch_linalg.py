@@ -12,12 +12,21 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 from tensornetworkquantumsimulator_torch.parallel import cuda_linalg as tl
 from tensornetworkquantumsimulator_torch.parallel import engine as te
 from tensornetworkquantumsimulator_tpu.parallel import engine as je
 from tensornetworkquantumsimulator_tpu.parallel import pallas_linalg as jl
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
 
 
 def _np(x):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 import tensornetworkquantumsimulator_torch as tt
 from tensornetworkquantumsimulator_torch.models import channels as t_ch
 from tensornetworkquantumsimulator_torch.models import gates as t_gates
@@ -24,6 +25,15 @@ from tensornetworkquantumsimulator_tpu.utils import graphs as j_graphs
 from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
+
 
 _TOL = dict(rtol=1e-6, atol=1e-8)
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 import tensornetworkquantumsimulator_torch as tt
 from tensornetworkquantumsimulator_tpu import parallel as jp
 from tensornetworkquantumsimulator_tpu.models.sites import op_matrix
@@ -22,6 +23,15 @@ from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
 from dense_oracle import dense_z_trajectory
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
+
 
 _Z = op_matrix("Z", 2)
 _KNOBS = ("TNQS_EIGH_ALG", "TNQS_SVD_ALG", "TNQS_QR_ALG", "TNQS_BP_KERNEL",

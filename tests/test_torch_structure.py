@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tensornetworkquantumsimulator_torch import set_default_device
 import tensornetworkquantumsimulator_torch as tt
 from tensornetworkquantumsimulator_torch.models import gates as t_gates
 from tensornetworkquantumsimulator_torch.models import sites as t_sites
@@ -25,6 +26,15 @@ from tensornetworkquantumsimulator_tpu.utils import graphs as j_graphs
 from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
+
 
 _REPO = Path(__file__).resolve().parents[1]
 
