@@ -16,8 +16,11 @@ Phases, each printing its checks and seconds:
    are built from ``csrc/``, one ``nvcc`` per source, all started together;
 2. each kernel against its plain PyTorch version on the card, inputs made
    from a numpy seed, at the main path's shapes among others: K1
-   ``jacobi_pseudo_roots`` at [72,10,10], K2 ``jacobi_eigh`` on full-rank
-   and rank-deficient PSD batches at [12,40,40] and [200,64,64], K3
+   ``jacobi_pseudo_roots`` at [72,10,10] and the rolled path's [6,10,10] and
+   [36,10,10], K2 ``jacobi_eigh`` on full-rank and rank-deficient PSD
+   batches at [12,40,40], [200,64,64], the rolled path's [1,40,40],
+   [3,40,40], [7,40,40] and, in a cluster of 8 CTAs per matrix, [4,128,128],
+   [6,256,256] and [48,256,256], K3
    ``bp_outgoing_d3`` at [127,8,8,8,2] and [127,64,64,64,2], K4
    ``complex_matmul`` against its plain version and a complex128 numpy A@B
    on six shapes (a ragged one and [8,512,512] among them);
@@ -27,9 +30,9 @@ Phases, each printing its checks and seconds:
    inputs the layers handed each kernel are recorded, and each kernel is
    then held against its plain version on them;
 4. main path, ``chi64``: IBM-Eagle 127-qubit kicked Ising at χ=64, two
-   layers, plus ``TNQS_BP_KERNEL=1``; K2 and K3 must launch, ⟨Z⟩ must
-   agree with the kernels-off run to 1e-4, and the recorded inputs are
-   checked as in phase 3;
+   layers, plus ``TNQS_BP_KERNEL=1``; K2 and K3 must launch, K2 also on the
+   Gram split's n=256 batches, ⟨Z⟩ must agree with the kernels-off run to
+   1e-4, and the recorded inputs are checked as in phase 3;
 5. physics: 3x3 TFIM at χ=8, cutoff 0, complex64, BP ⟨Z⟩ against the
    dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4;
 6. ``rolled``: the bench's headline ``chi10_rolled`` (bench.py:219-262),
@@ -62,10 +65,13 @@ Phases, each printing its checks and seconds:
    and device, CUDA events around back-to-back calls), its device time
    alone (a CUDA graph of the calls replayed between two events), its
    plain version's call time, the one PyTorch call that computes the same
-   function where there is one (K4 ``a @ b``, K2 ``torch.linalg.eigh`` on
-   full-rank batches) with its call and device time, and its bound (see
-   ``bound``, with the counts); K4 also the host path of its call and of
-   ``a @ b``, K3 its peak memory.
+   function where there is one (K4 ``a @ b``; K2 ``torch.linalg.eigh`` in
+   complex64 on full-rank batches, and in complex128, the port's library
+   eigh, on the n=256 batch the chi64 layers recorded, which the kernel
+   must not lose to) with its call and device time, and its bound (see
+   ``bound``, with the counts); K1 and K2 also the Jacobi sweeps per matrix
+   (min / median / max), K4 the host path of its call and of ``a @ b``, K3
+   its peak memory.
 
 Each main path (chi10, chi64, rolled, ensemble, noisy, microbench) runs
 with every launch counter set to 0 just before it and read just after.
@@ -154,51 +160,25 @@ def enqueue_us(fn, reps: int) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def device_ms(fn, reps: int, capturable: bool = True) -> tuple:
+def device_ms(fn, reps: int) -> tuple:
     """(mean device milliseconds per call, how it was measured): a CUDA
     graph of ``reps`` calls replayed between two events, so no host work
-    sits between the launches; for a call that cannot be captured (a
-    library call that synchronizes: ``capturable=False``), the CUDA kernel
-    time ``torch.profiler`` records over ``reps`` calls, provided it
-    recorded ``reps`` times the kernels of one call (else None: the
-    profiler lost events)."""
+    sits between the launches."""
     fn()
     torch.cuda.synchronize()
-    if capturable:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps, "graph"
-    one, _ = profiled(fn, 1)
-    kernels, us = profiled(fn, reps)
-    if kernels < reps * one or us <= 0:
-        return None, (f"not measured: the profiler recorded {kernels} "
-                      f"kernels for {reps} x {one}")
-    return us / 1e3 / reps, "profiler"
-
-
-def profiled(fn, reps: int) -> tuple:
-    """(CUDA kernels, their microseconds) torch.profiler records over
-    ``reps`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.count for e in events),
-            sum(getattr(e, "device_time_total", 0.0) for e in events))
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "graph"
 
 
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
@@ -315,6 +295,14 @@ def check_k1(dev, rng, cl) -> list:
     main-path-shape comparison (n=10, well-conditioned)."""
     B = 72  # 12 edges x 6 environments: the largest chi10 colour group
     entries = []
+    for b in (6, 36):  # chi10_rolled's slot-pair buckets
+        q = random_unitaries(rng, b, 10)
+        at = torch.from_numpy(psd(q, (0.1 + np.linspace(0, 1, 10))[None, :]
+                                  * np.ones((b, 1)))).to(dev)
+        entry = compared(f"{b}x10x10 well-conditioned", (at,),
+                         cl.jacobi_pseudo_roots(at), cl.pseudo_roots_plain(at))
+        assert entry["abs"] < 2e-4, f"K1 {entry['shape']}: {entry['abs']:.3e}"
+        entries.append(entry)
     for n in (8, 10, 32, 40):
         q = random_unitaries(rng, B, n)
         ones = np.ones((B, 1))
@@ -329,8 +317,8 @@ def check_k1(dev, rng, cl) -> list:
             root, inv = cl.jacobi_pseudo_roots(at)
             proot, pinv = cl.pseudo_roots_plain(at)
             if name == "well" and n == 10:
-                entries.append(compared(f"{B}x{n}x{n} well-conditioned", (at,),
-                                        (root, inv), (proot, pinv)))
+                entries.insert(0, compared(f"{B}x{n}x{n} well-conditioned",
+                                           (at,), (root, inv), (proot, pinv)))
             out[name] = [to_np(x) for x in (root, inv, proot, pinv)]
             r = out[name][0]
             rec = rel(r @ r, a.astype(np.complex128))
@@ -391,12 +379,16 @@ def assert_eigh(cl, at, tol, what) -> dict:
 
 
 def check_k2(dev, rng, cl) -> list:
-    """Random hermitian batches at n = 32, 40, 64, 88, then PSD batches at
-    the main path's shapes, full rank and rank-deficient: the chi10 gram
-    split [12,40,40] and the chi64 environment roots [200,64,64].  Returns
-    the main-path-shape comparisons."""
+    """Random hermitian batches at n = 32, 40, 64, 88 (one CTA a matrix) and
+    128, 256 (a cluster of 8 CTAs a matrix), then PSD batches at the main
+    path's shapes, full rank and rank-deficient: the chi10 gram split
+    [12,40,40], the chi64 environment roots [200,64,64], the chi64 gram
+    split's size [6,256,256] / [48,256,256], [4,128,128], and the rolled
+    path's buckets of 1, 3 and 7 matrices.  Returns the main-path-shape
+    comparisons."""
     entries = []
-    for n in (32, 40, 64, 88):
+    for n in (32, 40, 64, 88, 128, 256):
+        assert cl.eigh_kernel_supported(n, 8), n
         m = rng.standard_normal((8, n, n)) + 1j * rng.standard_normal((8, n, n))
         a = ((m + np.conj(np.swapaxes(m, -1, -2))) / 2).astype(np.complex64)
         at = torch.from_numpy(a).to(dev)
@@ -409,7 +401,9 @@ def check_k2(dev, rng, cl) -> list:
                                 - np.eye(n)).max())
         log("k2", f"{entry['shape']}: {entry['log']} (raw kernel unitarity "
                   f"{raw_unit:.2e})")
-    for B, n, r in ((12, 40, 40), (12, 40, 10), (200, 64, 64), (200, 64, 16)):
+    for B, n, r in ((12, 40, 40), (12, 40, 10), (200, 64, 64), (200, 64, 16),
+                    (1, 40, 10), (3, 40, 10), (7, 40, 10), (4, 128, 128),
+                    (4, 128, 32), (6, 256, 256), (48, 256, 64)):
         at = torch.from_numpy(gram(rng, B, n, r)).to(dev)
         entry = assert_eigh(cl, at, 2e-4, f"{B}x{n}x{n} gram rank {r}")
         log("k2", f"{entry['shape']}: {entry['log']}")
@@ -1058,7 +1052,7 @@ LAYERS = {"chi10": 5, "chi64": 2, "rolled": 10, "ensemble": ENSEMBLE_LAYERS,
 TIMES_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
               "unit", "fp32_bound_ms", "flops", "bytes", "library_ms",
               "library_device_ms", "host_us", "library_host_us",
-              "peak_extra_mib")
+              "peak_extra_mib", "sweeps")
 
 
 def main() -> int:
@@ -1135,6 +1129,20 @@ def main() -> int:
             lambda env, name=name, n=n: run_layers(tt, dev, name, n, env),
             env, required, targets)
         check_recorded(name, seen, cl, cb)
+        if name == "chi64":
+            # the Gram split's n=256 batches took the kernel; the latest
+            # one is kept for the times phase (kernel beside the library)
+            gram_shapes = [sh for sh in seen["K2"] if sh[-1] == 256]
+            assert gram_shapes and all(
+                cl.eigh_kernel_supported(sh[-1], sh[0]) for sh in gram_shapes
+            ), f"chi64: no n=256 batch reached K2: {sorted(seen['K2'])}"
+            (h,) = seen["K2"][max(gram_shapes)][-1]
+            entry = assert_eigh(
+                cl, h, 2e-4, "x".join(map(str, h.shape)) + " recorded on chi64")
+            entry["library"] = cl.eigh_plain  # what the port called before
+            shaped["K2"].append(entry)
+            log(name, f"K2 took the gram split's batches {gram_shapes}; the "
+                      f"largest, recorded: {entry['log']}")
         del seen
         done(name)
 
@@ -1196,49 +1204,66 @@ def main() -> int:
     wrapper = {"K1": cl.jacobi_pseudo_roots, "K2": cl.jacobi_eigh,
                "K3": cb.bp_outgoing_d3, "K4": cm.complex_matmul}
     # the one PyTorch call that computes the same function, where there is
-    # one (K2: on full-rank batches only, where cuSOLVER converges)
+    # one (K2: complex64 on full-rank batches only, where cuSOLVER converges;
+    # on the recorded n=256 batch the complex128 call the port made before)
     library = {"K2": torch.linalg.eigh, "K4": torch.matmul}
     reps = {"K1": 50, "K2": 20, "K3": 5, "K4": 500}
-    # torch.profiler stays attached once used and slows every launch after
-    # it, so its measurements come after all call and graph timings
-    profiled_later = []
     for k, entries in shaped.items():
         for e in entries:
             args = e["args"]
+            big = k == "K2" and args[0].shape[-1] > cl.ONE_CTA_MAX_N
+            n_reps = 3 if big else reps[k]
             e.update(bound(k, args))
-            # default arguments bind this entry: some calls run later
-            call = lambda k=k, args=args: wrapper[k](*args)  # noqa: E731
-            e["ms"] = time_ms(call, reps[k])
-            e["device_ms"], how = device_ms(call, reps[k])
-            e["plain_ms"] = time_ms(lambda: plain[k](*args), reps[k])
+            call = lambda: wrapper[k](*args)  # noqa: E731
+            e["ms"] = time_ms(call, n_reps)
+            e["device_ms"], how = device_ms(call, n_reps)
+            e["plain_ms"] = time_ms(lambda: plain[k](*args), n_reps)
             e["library_ms"] = e["library_device_ms"] = None
             lib = "none"
             full_rank = k != "K2" or e["shape"].endswith(
                 f"rank {args[0].shape[-1]}")
-            if k in library and full_rank:
-                lib_call = lambda k=k, args=args: library[k](*args)  # noqa: E731
+            lib_fn = e.get("library", library.get(k) if full_rank else None)
+            if lib_fn is not None:
+                lib_call = lambda: lib_fn(*args)  # noqa: E731
                 try:  # the library calls alone: cuSOLVER may not converge
-                    e["library_ms"] = time_ms(lib_call, reps[k])
-                    if k == "K2":  # synchronizes: profiler, after the rest
-                        profiled_later.append((k, e, lib_call))
-                        lib_how = "profiler, below"
+                    e["library_ms"] = time_ms(lib_call, n_reps)
+                    if k == "K2":
+                        # the call synchronizes, so no graph can hold it:
+                        # events around three calls, which each wait for the
+                        # device, are its device time and its host gaps
+                        e["library_device_ms"] = time_ms(lib_call, 3, 1)
+                        lib_how = "events around 3 synchronizing calls"
                     else:
                         e["library_device_ms"], lib_how = device_ms(
-                            lib_call, reps[k])
-                        e["library_host_us"] = enqueue_us(lib_call, reps[k])
+                            lib_call, n_reps)
+                        e["library_host_us"] = enqueue_us(lib_call, n_reps)
                     lib = (f"{e['library_ms']:.4f} ms call, "
                            f"{fmt_ms(e['library_device_ms'])} device "
                            f"({lib_how})")
                 except RuntimeError as err:
                     lib = f"failed ({str(err).splitlines()[0][:60]})"
             if k == "K4":
-                e["host_us"] = enqueue_us(call, reps[k])
+                e["host_us"] = enqueue_us(call, n_reps)
                 lib += (f"; host path per call {e['host_us']:.1f} us (a @ b "
                         f"{e.get('library_host_us', float('nan')):.1f} us)")
             extra = ""
+            if k in ("K1", "K2"):
+                sweeps = torch.zeros(args[0].shape[0], dtype=torch.int32,
+                                     device=dev)
+                wrapper[k](*args, sweeps=sweeps)
+                sw = np.sort(sweeps.cpu().numpy())
+                e["sweeps"] = [int(sw[0]), int(sw[len(sw) // 2]), int(sw[-1])]
+                extra = (f"; sweeps per matrix min/median/max "
+                         f"{'/'.join(map(str, e['sweeps']))}")
             if k == "K2":
-                raw = time_ms(lambda: cl.jacobi_eigh_raw(*args), reps[k])
-                extra = f"; kernel alone {raw:.4f} ms"
+                raw = time_ms(lambda: cl.jacobi_eigh_raw(*args), n_reps)
+                extra += f"; kernel without polish {raw:.4f} ms"
+            if "library" in e:
+                # the gate admits n=256 only while the kernel is no slower
+                # than the complex128 library call it replaced there
+                assert e["device_ms"] <= e["library_device_ms"], (
+                    f"K2 {e['shape']}: kernel {e['device_ms']:.3f} ms, "
+                    f"library {e['library_device_ms']:.3f} ms")
             if k == "K3":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1259,13 +1284,6 @@ def main() -> int:
                          f"{e['bound_ms']:.3g} ms by {e['bound_by']} "
                          f"({e['flops']:.3g} {e['unit']} flops, "
                          f"{e['bytes']:.3g} B){fp32}{extra}")
-    for k, e, fn in profiled_later:
-        try:
-            e["library_device_ms"], how = device_ms(fn, 3, capturable=False)
-        except RuntimeError as err:  # cuSOLVER did not converge
-            how = f"failed ({str(err).splitlines()[0][:60]})"
-        log("times", f"{k} {e['shape']}: library device "
-                     f"{fmt_ms(e['library_device_ms'])} ({how})")
     done("times")
 
     meta = {

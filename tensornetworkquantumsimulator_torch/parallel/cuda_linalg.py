@@ -2,21 +2,24 @@
 
 The counterpart of ``tensornetworkquantumsimulator_tpu.parallel.
 pallas_linalg``.  Two kernels share one parallel-ordered cyclic Jacobi
-device routine (``csrc/jacobi.cu``), one CTA per matrix, which stops each
-matrix by a convergence test (capped at :data:`MAX_SWEEPS`):
+device routine (``csrc/jacobi.cu``), which stops each matrix by a
+convergence test (capped at :data:`MAX_SWEEPS`) and can report the sweeps
+each matrix ran:
 
 - :func:`jacobi_pseudo_roots` (K1) runs the whole environment-root stage
   of the simple update in one launch: Jacobi, two Newton–Schulz unitarity
   passes, Rayleigh re-extraction from the original matrix, the 10·ε·λmax
   clip and both reconstructions U√wU†, Uw^-½U†.
-- :func:`jacobi_eigh` (K2) returns eigenvalues and eigenvectors from the
-  kernel; one Newton–Schulz pass, a Rayleigh quotient and the ascending
-  sort follow in PyTorch, as in the reference wrapper.
+- :func:`jacobi_eigh` (K2) returns ascending eigenvalues and eigenvectors:
+  Jacobi, one Newton–Schulz pass, a Rayleigh quotient and the sort, in one
+  launch with one CTA per matrix up to n = 88; above that a cluster of 8
+  CTAs holds one matrix and the polish follows in PyTorch.
 
 Beside each wrapper sits its plain PyTorch version (the reference's
 non-kernel path).  A wrapper takes the plain version only for a CPU
-tensor; on a CUDA tensor it launches the kernel or raises.  The shape
-gates are the reference's, so the port routes every call as it does.
+tensor; on a CUDA tensor it launches the kernel or raises.  K1's shape
+gate is the reference's; K2's is the reference's up to n = 88 and this
+card's above it (:func:`eigh_kernel_supported`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,17 @@ eigh_launches = LaunchCounter("jacobi_eigh")
 # decades unconverged at n ≥ 32.
 MAX_SWEEPS = 30
 
+# One CTA holds a matrix up to this n: both copies of A, V and a strip of
+# rotations per warp, 3·n²·8 + 32·(n/2)·16 bytes = 208 KB at n = 88, of the
+# 227 KB a block may use on an H100 (the reference's limit is the same 88).
+ONE_CTA_MAX_N = 88
+# Above it a thread block cluster of 8 CTAs holds a matrix, n/8 rows each:
+# 3·n² bytes a CTA, 192 KB at n = 256 (n = 272 would need 217 KB + tables,
+# and 8 is the largest portable cluster), n a multiple of 16 so that every
+# CTA owns whole pairs.
+CLUSTER_CTAS = 8
+CLUSTER_MAX_N = 256
+
 
 def roots_kernel_supported(n: int, batch: int) -> bool:
     """Shape gate of K1: the reference's (even 4 ≤ n ≤ 40)."""
@@ -44,9 +58,15 @@ def roots_kernel_supported(n: int, batch: int) -> bool:
 
 
 def eigh_kernel_supported(n: int, batch: int) -> bool:
-    """Shape gate of K2: the reference's (even 4 ≤ n ≤ 88); other n go to
-    the library eigh, as in the reference."""
-    return n % 2 == 0 and 4 <= n <= 88 and batch > 0
+    """Shape gate of K2 on an H100: even 4 ≤ n ≤ 88 in one CTA's shared
+    memory (as in the reference), and multiples of 16 up to 256 in the
+    distributed shared memory of a cluster of 8 CTAs (:data:`CLUSTER_MAX_N`);
+    other n go to the library eigh."""
+    if batch <= 0:
+        return False
+    if n <= ONE_CTA_MAX_N:
+        return n % 2 == 0 and n >= 4
+    return n % (2 * CLUSTER_CTAS) == 0 and n <= CLUSTER_MAX_N
 
 
 def hermitize(m: torch.Tensor) -> torch.Tensor:
@@ -103,9 +123,22 @@ def _check_cuda_batch(h: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected [B, n, n], got {tuple(h.shape)}")
 
 
-def jacobi_pseudo_roots(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
+def _sweeps_ptr(sweeps, batch: int, device) -> int:
+    """Device pointer of the optional per-matrix sweep counts (0: none)."""
+    if sweeps is None:
+        return 0
+    if (sweeps.dtype != torch.int32 or sweeps.shape != (batch,)
+            or sweeps.device != device or not sweeps.is_contiguous()):
+        raise ValueError(f"sweeps: expected a contiguous int32 [{batch}] on "
+                         f"{device}")
+    return sweeps.data_ptr()
+
+
+def jacobi_pseudo_roots(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
+                        sweeps: torch.Tensor | None = None):
     """(√M, 1/√M) of a hermitian PSD batch ``h`` [B, n, n] as ONE kernel
-    (K1).  Callers gate on :func:`roots_kernel_supported`."""
+    (K1).  Callers gate on :func:`roots_kernel_supported`.  ``sweeps``, an
+    int32 [B] CUDA tensor, receives the Jacobi sweeps each matrix ran."""
     B, n, _ = h.shape
     if not roots_kernel_supported(n, B):
         raise ValueError(f"jacobi_pseudo_roots: unsupported shape {tuple(h.shape)}")
@@ -117,44 +150,56 @@ def jacobi_pseudo_roots(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
     inv_root = torch.empty_like(h)
     cuda_build.launch(
         "tnqs_jacobi_pseudo_roots", h.data_ptr(), root.data_ptr(),
-        inv_root.data_ptr(), B, n, max_sweeps,
+        inv_root.data_ptr(), _sweeps_ptr(sweeps, B, h.device), B, n,
+        max_sweeps,
     )
     roots_launches.count += 1
     return root, inv_root
 
 
-def jacobi_eigh_raw(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
-    """The K2 kernel alone: unsorted eigenvalues (float32 [B, n]) and the
-    accumulated rotations (complex64 [B, n, n], eigenvectors as columns),
-    with no polish."""
+def _launch_eigh(h: torch.Tensor, max_sweeps: int, polish: bool, sweeps):
     B, n, _ = h.shape
     _check_cuda_batch(h, "jacobi_eigh")
     if not h.is_cuda or not eigh_kernel_supported(n, B):
-        raise ValueError(f"jacobi_eigh_raw: needs a CUDA batch with even "
-                         f"4 <= n <= 88, got {tuple(h.shape)} on {h.device}")
+        raise ValueError(f"jacobi_eigh: the kernel needs a CUDA batch that "
+                         f"eigh_kernel_supported admits, got {tuple(h.shape)} "
+                         f"on {h.device}")
     h = h.contiguous()
     w = torch.empty((B, n), dtype=torch.float32, device=h.device)
     v = torch.empty_like(h)
     cuda_build.launch(
         "tnqs_jacobi_eigh", h.data_ptr(), w.data_ptr(), v.data_ptr(),
-        B, n, max_sweeps,
+        _sweeps_ptr(sweeps, B, h.device), B, n, max_sweeps, int(polish),
     )
     eigh_launches.count += 1
     return w, v
 
 
-def jacobi_eigh(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
+def jacobi_eigh_raw(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
+                    sweeps: torch.Tensor | None = None):
+    """The K2 kernel without its polish: eigenvalues in no particular order
+    (float32 [B, n], the diagonal of the rotated matrix) and the
+    accumulated rotations (complex64 [B, n, n], column j the eigenvector of
+    eigenvalue j)."""
+    return _launch_eigh(h, max_sweeps, False, sweeps)
+
+
+def jacobi_eigh(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
+                sweeps: torch.Tensor | None = None):
     """Batched hermitian eigendecomposition ``h`` [B, n, n] → (w [B, n]
     ascending, v [B, n, n] unitary), drop-in for ``torch.linalg.eigh``.
 
-    On CUDA the Jacobi rotations run in the K2 kernel; one Newton–Schulz
-    step (V ← V(1.5I − 0.5V†V)) and a Rayleigh quotient against the
-    original matrix follow here, then the ascending sort (the reference
-    wrapper's two-pass polish, pallas_linalg.py:289-311)."""
+    On CUDA the Jacobi rotations run in the K2 kernel, followed by one
+    Newton–Schulz step (V ← V(1.5I − 0.5V†V)), a Rayleigh quotient against
+    the original matrix and the ascending sort (the reference wrapper's
+    two-pass polish, pallas_linalg.py:289-311): inside the same launch for
+    n ≤ :data:`ONE_CTA_MAX_N`, here in PyTorch for the cluster sizes."""
     B, n = h.shape[0], h.shape[-1]
     if not h.is_cuda or not eigh_kernel_supported(n, B):
         return eigh_plain(h)
-    w, v = jacobi_eigh_raw(h, max_sweeps)
+    if n <= ONE_CTA_MAX_N:
+        return _launch_eigh(h, max_sweeps, True, sweeps)
+    w, v = _launch_eigh(h, max_sweeps, False, sweeps)
     eye = torch.eye(n, dtype=v.dtype, device=v.device)
     v = v @ (1.5 * eye - 0.5 * (v.mH @ v))
     w = torch.einsum("bji,bji->bi", v.conj(), h @ v).real

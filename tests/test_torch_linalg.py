@@ -129,13 +129,19 @@ def test_plain_eigh_matches_jax_kernel_n40():
 
 
 def test_kernel_gates_match_reference():
-    for n in range(0, 100):
+    for n in range(0, 300):
         for batch in (0, 1, 72):
             assert tl.roots_kernel_supported(n, batch) == \
                 jl.roots_kernel_supported(n, batch)
-            # jacobi_eigh's own fallback rule (pallas_linalg.py:247)
+            # jacobi_eigh's own fallback rule (pallas_linalg.py:247) up to
+            # the n = 88 one CTA's shared memory holds; above it the H100's
+            # limit: a cluster of 8 CTAs holds 3·n² bytes each (192 KB of
+            # 227 KB at n = 256), n a multiple of 16
             ref = not (n % 2 == 1 or n < 4 or n > 88 or batch == 0)
-            assert tl.eigh_kernel_supported(n, batch) == ref
+            card = 88 < n <= 256 and n % 16 == 0 and batch > 0
+            assert tl.eigh_kernel_supported(n, batch) == (ref or card)
+    assert tl.ONE_CTA_MAX_N == 88 and tl.CLUSTER_MAX_N == 256
+    assert 3 * tl.CLUSTER_MAX_N ** 2 * 8 // tl.CLUSTER_CTAS < 227 * 1024
     # the convergence test's cap leaves room above the reference's fixed
     # sweep counts
     assert tl.MAX_SWEEPS >= 2 * max(jl.default_sweeps(n) for n in range(4, 90))
