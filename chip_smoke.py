@@ -58,7 +58,26 @@ Phases, each printing its checks and seconds:
 10. ``microbench``: every op of ``tensornetworkquantumsimulator_torch.
    microbench`` at its sweep shapes (16,40) and (8,128), with small M
    points; ``cpallas`` must launch K4;
-11. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
+11. ``measure``: the measurement half, every step asserting.  On the 5x5
+   TFIM χ=10 complex64 state the chi10 path leaves: the Vidal gauge (⟨Z⟩
+   unchanged to 1e-5, messages diagonal and a BP fixed point, spectra
+   descending); ``batched_truncate`` on the fast stack, the counted path of
+   this phase (K1 and K2 must launch, ⟨Z⟩ within 1e-4 of kernels off, the
+   recorded kernel inputs checked as in phase 3); the Loschmidt echo (1 at
+   t=0 to 1e-5, at most 1 after the layers) and ``batched_inner(psi, psi)``
+   against the BP norm; the 24 ⟨ZZ⟩ path correlators from vertex (1,1),
+   distance 1 against ``bond_expectations`` to 1e-5; mutual information ≥
+   -1e-5; 32 BP samples (site means within 4σ plus one count of
+   (1-⟨Z⟩)/2); the grid boundary MPS at rank 16 (all-site ⟨Z⟩ within 2e-4
+   of rank 24, 2e-2 of BP and 5e-5 of the same call on the CPU); 32
+   certified samples at ranks 8 (finite, the spread of ``log_poverq``
+   printed, four samples recontracted on the CPU, padded and equal-column
+   strands through ``_single_truncate``).  On the Eagle 127-qubit χ=8 state
+   after two kicked-Ising layers: the planar boundary MPS against BP to
+   1e-3.  On the noisy path's d=4 state: purity in (0, 1] and 32
+   density-matrix samples with finite ``logps``.  Times (CUDA events after
+   one warm-up call) stand beside the card's name and power limit;
+12. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
    and off (CUDA events, after warm-up), chi64 with K3 off / on / on / off;
    then each kernel on the batches of phase 2 that have the main path's
    shapes (K4: the microbenchmark's and [8,512,512]): its call time (host
@@ -73,9 +92,12 @@ Phases, each printing its checks and seconds:
    (min / median / max), K4 the host path of its call and of ``a @ b``, K3
    its peak memory.
 
-Each main path (chi10, chi64, rolled, ensemble, noisy, microbench) runs
-with every launch counter set to 0 just before it and read just after.
-The line before the last is ``{"kernels": [...]}`` (with launches per path
+At the very end ``torch.profiler`` reads the device's busy share of the
+BMPS evaluation and of the two samplers.
+
+Each main path (chi10, chi64, rolled, ensemble, noisy, microbench,
+measure) runs with every launch counter set to 0 just before it and read
+just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -572,8 +594,8 @@ def build_config(tt, dev, name):
     if name == "chi10":
         g, chi = tt.named_grid((5, 5)), 10
         layer = tfim_layer(tt, g)
-    else:
-        g, chi = tt.ibm_eagle_lattice(), 64
+    else:  # the Eagle lattice: "chi64", or "heavyhex" at χ=8
+        g, chi = tt.ibm_eagle_lattice(), 64 if name == "chi64" else 8
         layer = eagle_layer(tt, g)
     spec, state = tt.batched_product_state(g, chi=chi, dtype=torch.complex64,
                                            device=dev)
@@ -928,7 +950,8 @@ def noisy_layers(tt, dev, counters):
     """The parametric noisy layer on the 5x5 grid at χ=8 (d=4 Pauli sites,
     complex64, fast stack with the SVD split), counted; then the same layers compiled from
     the tuple circuit in the density-matrix picture; both read out through
-    the sandwich-BP Pauli expectations.  Returns the launches."""
+    the sandwich-BP Pauli expectations.  Returns (launches, spec, the noisy
+    layer's final state)."""
     g, chi = tt.named_grid((5, 5)), 8
     spec, s0 = tt.batched_product_state(g, chi=chi, state_fn=lambda v: "0",
                                         dtype=torch.complex64, d=4,
@@ -971,7 +994,7 @@ def noisy_layers(tt, dev, counters):
                  f"{va['Z'].mean():.6f}, <X> mean {va['X'].mean():.6f}; max "
                  f"site |d<Z>| {worst['Z']:.2e}, |d<X>| {worst['X']:.2e} vs "
                  f"BatchedCircuit(picture='rho') (bar {BAND})")
-    return launches
+    return launches, spec, state_a
 
 
 MICRO_M_POINTS = (4, 16)
@@ -1003,6 +1026,366 @@ def microbench_phase(counters):
     log("microbench", "qr step finite on the chains' fixed point (equal "
                       "complex columns) at both shapes")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the measurement half, on the states the paths above leave
+# ---------------------------------------------------------------------------
+
+MEASURE_SAMPLES = 32  # per sampler call (scripts/measure_bench.py:35)
+BMPS_RANK, BMPS_SWEEPS = 16, 8  # scripts/measure_bench.py:90
+BMPS_RANK_WIDE = 24  # the rank the grid evaluation must have converged by
+# complex64 through ~40 QR-gauged column fits whose sweeps stop on a
+# threshold: three runs on an H100 read 1.8e-5 to 3.9e-5 between the ranks
+# and 2.6e-6 to 9.6e-6 between the card and the CPU
+BMPS_RANK_BAND, BMPS_CPU_BAND = 2e-4, 5e-5
+CERT_RANK = 8  # scripts/measure_bench.py:111-113
+CPU_SAMPLES = 4  # certified samples recontracted on the CPU
+CERT_BAND = 5e-3  # log_poverq, card vs CPU on the same bitstrings
+PROFILED_SAMPLES = 8  # certified samples under the profiler
+
+
+class ForcedDraws:
+    """Stands in for the samplers' draw hook: hands out the given
+    bitstrings [S, n] one column per call, in call order."""
+
+    def __init__(self, bits):
+        self.bits, self.calls = bits, 0
+
+    def __call__(self, probs, generator=None):
+        out = self.bits[:, self.calls].to(probs.device)
+        self.calls += 1
+        return out
+
+
+def evolved(tt, dev, name, n, env):
+    """(spec, initial state, the state after n layers of a configuration at
+    its BP fixed point, its BP ⟨Z⟩ [V] on the card)."""
+    with knobs(env):
+        spec, psi0, layer_fn = build_config(tt, dev, name)
+        state = psi0
+        for _ in range(n):
+            state, _ = layer_fn(state)
+        state = tt.bp_update(spec, state, maxiter=100)
+        z = tt.local_expectations(spec, state, tt.op_matrix("Z", 2)).real
+    assert torch.isfinite(z).all(), f"{name}: non-finite <Z>"
+    return spec, psi0, state, z
+
+
+def call_ms(fn, reps: int = 3) -> float:
+    """Milliseconds per call between two CUDA events, after one warm-up
+    call: the host's dispatch and its syncs included, as a user waits."""
+    return time_ms(fn, reps, warmup=1)
+
+
+def measure_grid(tt, dev, engine, counters, targets, cl, cb, card):
+    """The 5x5 TFIM χ=10 complex64 state the chi10 path leaves, measured
+    every way the port offers; each step asserts.  ``batched_truncate`` on
+    the fast stack is the counted path (K1 and K2 must launch).  Returns
+    (launches, the calls whose device busy share is read at the end)."""
+    tp = tt.parallel
+    cert_mod = tp.certified_sampling
+    z_op = tt.op_matrix("Z", 2)
+    spec, psi0, state, z_bp = evolved(tt, dev, "chi10", LAYERS["chi10"],
+                                      FAST_STACK)
+    V = spec.num_vertices
+    times = {}
+
+    def z_of(st):
+        return tt.local_expectations(spec, st, z_op).real
+
+    # Vidal gauge: the state is unchanged, the messages are diag(spectrum)
+    # and a BP fixed point, the spectra descend and sum to one
+    gauged, spectra = tp.batched_symmetric_gauge(spec, state)
+    dz = float((z_of(gauged) - z_bp).abs().max())
+    m = gauged.messages
+    off = float((m - torch.diag_embed(torch.diagonal(m, dim1=-2, dim2=-1))
+                 ).abs().max())
+    tables = engine.graph_tables(spec, dev)
+    drift = float(engine._message_distance(
+        m, engine.bp_iteration(spec, gauged, tables), tables.mask))
+    descending = float(torch.diff(spectra, dim=-1).max())
+    total = float((spectra.sum(-1) - 1).abs().max())
+    assert dz <= 1e-5 and off <= 1e-7 and drift <= 1e-5, (
+        f"gauge: max site |dZ| {dz:.3e}, off-diagonal {off:.3e}, BP drift "
+        f"{drift:.3e}")
+    # the function returns the singular values as they come: they sum to
+    # one as far as the messages it was handed are diagonal (entry sum =
+    # trace), which the simple update leaves them to ~1e-3
+    assert descending <= 1e-6 and total <= 1e-2 and float(spectra.min()) >= 0, (
+        f"gauge: spectra ascend by {descending:.3e}, sums off by {total:.3e}")
+    times["gauge"] = call_ms(lambda: tp.batched_symmetric_gauge(spec, state))
+    log("measure", f"gauge: max site |dZ| {dz:.2e} (bar 1e-5); messages "
+                   f"diagonal (off-diagonal {off:.1e}) and a BP fixed point "
+                   f"(distance after one sweep {drift:.2e}); {len(spectra)} "
+                   f"spectra descending, |sum - 1| {total:.2e} (bar 1e-2); largest "
+                   f"Schmidt weight per bond "
+                   f"{float(spectra[:, 0].min()):.4f}-"
+                   f"{float(spectra[:, 0].max()):.4f}")
+
+    # truncation: the counted path of this phase
+    def run_truncate(env):
+        with knobs(env):
+            out, errs = tp.batched_truncate(spec, state, chi=state.chi,
+                                            cutoff=1e-10)
+            z = z_of(out).cpu().numpy()
+        assert np.isfinite(z).all() and torch.isfinite(errs).all(), (
+            "truncate: non-finite output")
+        return z
+
+    launches, seen, z_tr = main_path(counters, "measure", run_truncate,
+                                     FAST_STACK, ("K1", "K2"), targets)
+    check_recorded("measure", seen, cl, cb)
+    del seen
+    moved = float(np.abs(z_tr - z_bp.cpu().numpy()).max())
+    assert moved <= 1e-3, f"truncate at the state's own chi moved <Z> by {moved:.3e}"
+    with knobs(FAST_STACK):
+        times["truncate"] = call_ms(
+            lambda: tp.batched_truncate(spec, state, chi=state.chi,
+                                        cutoff=1e-10))
+    log("measure", f"truncate(chi={state.chi}, cutoff=1e-10): launches per call "
+                   f"{launches}; <Z> moved by {moved:.2e} from the input's")
+
+    # overlaps
+    echo0, _ = tp.batched_loschmidt_echo(spec, psi0, psi0)
+    echo, phase = tp.batched_loschmidt_echo(spec, psi0, state)
+    assert abs(float(echo0)) <= 1e-5 and float(echo) <= 1e-5, (
+        f"echo: log|echo| {float(echo0):.3e} at t=0, {float(echo):.3e} after")
+    log_norm, norm_phase = tp.batched_inner(spec, state, state)
+    bp_norm, _ = tp.overlap.sandwich_logz(
+        spec, state.tensors, state.tensors.conj(), state.messages)
+    d_norm = abs(float(log_norm) - float(bp_norm))
+    assert d_norm <= 1e-4 and abs(np.expm1(1j * float(norm_phase))) <= 1e-4, (
+        f"inner(psi, psi): log differs from the BP norm by {d_norm:.3e}, "
+        f"phase {float(norm_phase):.3e}")
+    times["echo"] = call_ms(
+        lambda: tp.batched_loschmidt_echo(spec, psi0, state))
+    log("measure", f"echo: log|<psi0|psi0>| {float(echo0):.2e}, after "
+                   f"{LAYERS['chi10']} layers log|echo| {float(echo):.5f} "
+                   f"phase {float(phase):.5f}; log<psi|psi> "
+                   f"{float(log_norm):.6f} vs Z_BP at the state's messages: "
+                   f"{d_norm:.2e} (bar 1e-4)")
+
+    # correlators from the corner vertex, at every distance
+    corner = (1, 1)
+    pairs = [(corner, v) for v in spec.vertices if v != corner]
+    corr_fn = tp.make_path_correlation_fn(spec, pairs, z_op, real_output=True)
+    zz = corr_fn(state)
+    bonds = tp.bond_expectations(spec, state, z_op, z_op).real
+    ic = spec.vertex_position(corner)
+    worst, near = 0.0, 0
+    for e, (iu, iv, _, _) in enumerate(spec.edges):
+        if ic in (iu, iv):
+            other = spec.vertices[iv if iu == ic else iu]
+            worst = max(worst, abs(float(zz[pairs.index((corner, other))])
+                                   - float(bonds[e])))
+            near += 1
+    assert near == 2 and worst <= 1e-5 and torch.isfinite(zz).all(), (
+        f"correlator: distance-1 pairs differ from bond_expectations by "
+        f"{worst:.3e}")
+    mi = tp.make_mutual_information_fn(spec, pairs)(state)
+    assert float(mi.min()) >= -1e-5 and torch.isfinite(mi).all(), (
+        f"mutual information {float(mi.min()):.3e} < 0")
+    times["correlator"] = call_ms(lambda: corr_fn(state))
+    log("measure", f"{len(pairs)} <ZZ> pairs from {corner}: in "
+                   f"[{float(zz.min()):.5f}, {float(zz.max()):.5f}], "
+                   f"distance-1 pairs vs bond_expectations {worst:.2e} (bar "
+                   f"1e-5); mutual information in [{float(mi.min()):.2e}, "
+                   f"{float(mi.max()):.5f}] (bar >= -1e-5)")
+
+    # BP sampler: the site means against BP's own marginals
+    S = MEASURE_SAMPLES
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    bp_sampler = tp.make_bp_sampler(spec)
+    bits = bp_sampler(state, S, gen)
+    assert bits.shape == (S, V) and int(bits.min()) >= 0 and int(bits.max()) <= 1
+    p1 = (1 - z_bp) / 2
+    sigma = torch.sqrt(p1 * (1 - p1) / S)
+    excess = ((bits.double().mean(0) - p1).abs() - 4 * sigma).max()
+    assert float(excess) <= 1 / S, (
+        f"BP sampler: a site mean is {float(excess):.3f} beyond 4 sigma of "
+        f"(1 - <Z>)/2 (one count, {1 / S:.3f}, allowed)")
+    times["bp_samples"] = call_ms(lambda: bp_sampler(state, S, gen), reps=1)
+    log("measure", f"BP sampler: {S} samples of {V} bits in {{0,1}}; site "
+                   f"means within 4 sigma (+ one count) of (1-<Z>)/2, worst "
+                   f"excess over 4 sigma {float(excess):+.3f}")
+
+    # boundary MPS: converged in its rank, near BP, and equal to the CPU's.
+    # BP misses the grid's short loops (7e-3 in <Z> on this state on an
+    # H100, at ranks 8, 16 and 24 alike), so the band against BP is wide
+    # and the check of the contraction is the larger rank
+    _, expect = tp.make_grid_bmps(spec, 5, 5, kmps=BMPS_RANK,
+                                  niters=BMPS_SWEEPS)
+    z_bmps = expect(state.tensors, z_op)
+    d_bp = float((z_bmps - z_bp).abs().max())
+    assert torch.isfinite(z_bmps).all() and d_bp <= 2e-2, (
+        f"BMPS: max site |dZ| vs BP {d_bp:.3e} (bar 2e-2)")
+    z_wide = tp.make_grid_bmps(spec, 5, 5, kmps=BMPS_RANK_WIDE,
+                               niters=BMPS_SWEEPS)[1](state.tensors, z_op)
+    d_rank = float((z_bmps - z_wide).abs().max())
+    assert d_rank <= BMPS_RANK_BAND, (
+        f"BMPS: rank {BMPS_RANK} vs {BMPS_RANK_WIDE}: max site |dZ| "
+        f"{d_rank:.3e} (bar {BMPS_RANK_BAND})")
+    t0 = time.perf_counter()
+    z_cpu = expect(state.tensors.cpu(), z_op)
+    t_cpu = time.perf_counter() - t0
+    d_cpu = float((z_bmps.cpu() - z_cpu).abs().max())
+    assert d_cpu <= BMPS_CPU_BAND, (
+        f"BMPS: max site |dZ| card vs CPU {d_cpu:.3e} (bar {BMPS_CPU_BAND})")
+    times["bmps"] = call_ms(lambda: expect(state.tensors, z_op))
+    log("measure", f"grid BMPS (rank {BMPS_RANK}, up to {BMPS_SWEEPS} sweeps): "
+                   f"all-site <Z> vs rank {BMPS_RANK_WIDE} {d_rank:.2e} (bar "
+                   f"{BMPS_RANK_BAND}), vs BP {d_bp:.2e} (bar 2e-2), vs the "
+                   f"same call on the CPU {d_cpu:.2e} (bar {BMPS_CPU_BAND}; "
+                   f"the CPU call took "
+                   f"{t_cpu:.1f} s)")
+
+    # certified sampler; the first samples recontracted on the CPU
+    cert = tp.make_grid_certified_sampler(spec, 5, 5, norm_rank=CERT_RANK,
+                                          projected_rank=CERT_RANK)
+    cbits, logq, lpq = cert(state.tensors, S, gen)
+    assert cbits.shape == (S, 5, 5) and int(cbits.min()) >= 0 and (
+        int(cbits.max()) <= 1)
+    assert torch.isfinite(logq).all() and torch.isfinite(lpq).all(), (
+        "certified sampler: non-finite logq / log_poverq")
+    draw = cert_mod._draw
+    cert_mod._draw = ForcedDraws(cbits[:CPU_SAMPLES].reshape(CPU_SAMPLES, -1))
+    try:
+        cbits_c, logq_c, lpq_c = cert(state.tensors.cpu(), CPU_SAMPLES)
+    finally:
+        cert_mod._draw = draw
+    d_q = float((logq[:CPU_SAMPLES].cpu() - logq_c).abs().max())
+    d_pq = float((lpq[:CPU_SAMPLES].cpu() - lpq_c).abs().max())
+    assert torch.equal(cbits_c, cbits[:CPU_SAMPLES].cpu())
+    # both runs truncate to rank 8, which leaves the certificate a spread
+    # of its own (std 4e-4 over the samples on an H100); two correct
+    # truncations differ by as much (9.8e-4 measured)
+    assert d_q <= 1e-3 and d_pq <= CERT_BAND, (
+        f"certified sampler: card vs CPU on the same bitstrings: logq "
+        f"{d_q:.3e} (bar 1e-3), log_poverq {d_pq:.3e} (bar {CERT_BAND})")
+    # zero-padded strands and one of exactly equal columns, the inputs a
+    # batched QR of small complex matrices turns to NaN on CUDA
+    rng = np.random.default_rng(7)
+    strand = (rng.standard_normal((3, 5, 2, 10, 2))
+              + 1j * rng.standard_normal((3, 5, 2, 10, 2))).astype(np.complex64)
+    strand[1] = 1.0
+    padded, ln = cert_mod._single_truncate(torch.from_numpy(strand).to(dev),
+                                           CERT_RANK)
+    _, ln_c = cert_mod._single_truncate(torch.from_numpy(strand), CERT_RANK)
+    d_ln = float((ln.cpu() - ln_c).abs().max())
+    assert torch.isfinite(torch.view_as_real(padded)).all() and d_ln <= 1e-4, (
+        f"_single_truncate on padded strands: log norm card vs CPU {d_ln:.3e}")
+    times["cert_samples"] = call_ms(lambda: cert(state.tensors, S, gen),
+                                    reps=1)
+    log("measure", f"certified sampler (ranks {CERT_RANK}): {S} samples; logq "
+                   f"in [{float(logq.min()):.3f}, {float(logq.max()):.3f}]; "
+                   f"log_poverq mean {float(lpq.mean()):.5f}, spread (std) "
+                   f"{float(lpq.std()):.2e}, range "
+                   f"[{float(lpq.min()):.5f}, {float(lpq.max()):.5f}]; "
+                   f"{CPU_SAMPLES} samples recontracted on the CPU: logq "
+                   f"{d_q:.2e} (bar 1e-3), log_poverq {d_pq:.2e} (bar "
+                   f"{CERT_BAND}); padded and "
+                   f"equal-column strands finite, log norm vs CPU {d_ln:.2e}")
+
+    log("measure", f"{card}: 5x5 chi=10 complex64, per call after one "
+                   f"warm-up (CUDA events, host dispatch included): BMPS "
+                   f"all-site <Z> {times['bmps']:.1f} ms per evaluation; "
+                   f"certified sampler {S / times['cert_samples'] * 1e3:.1f} "
+                   f"samples/s ({times['cert_samples']:.1f} ms per {S}); BP "
+                   f"sampler {S / times['bp_samples'] * 1e3:.1f} samples/s "
+                   f"({times['bp_samples']:.1f} ms per {S}); gauge "
+                   f"{times['gauge']:.2f} ms; truncate {times['truncate']:.1f} "
+                   f"ms; echo {times['echo']:.1f} ms; {len(pairs)}-pair "
+                   f"correlator {times['correlator']:.2f} ms")
+    # (the call, its time without the profiler in ms): the certified
+    # sampler launches ~7000 device operations a sample, which the profiler
+    # takes seconds each to digest, so it is traced at fewer samples
+    few = PROFILED_SAMPLES
+    profiled = {
+        "BMPS all-site <Z>": (lambda: expect(state.tensors, z_op),
+                              times["bmps"]),
+        f"certified sampler, {few} samples": (
+            lambda: cert(state.tensors, few, gen),
+            call_ms(lambda: cert(state.tensors, few, gen), reps=1)),
+        f"BP sampler, {S} samples": (lambda: bp_sampler(state, S, gen),
+                                     times["bp_samples"]),
+    }
+    return launches, profiled
+
+
+def measure_eagle(tt, dev, card):
+    """IBM Eagle, 127 qubits, χ=8, two kicked-Ising layers: the planar
+    boundary MPS (identity wires on the column grid) against BP."""
+    spec, _, state, z_bp = evolved(tt, dev, "heavyhex", 2, FAST_STACK)
+    _, expect = tt.parallel.make_planar_bmps(spec, kmps=BMPS_RANK)
+    z_op = tt.op_matrix("Z", 2)
+    z = expect(state.tensors, z_op)
+    d = float((z - z_bp).abs().max())
+    assert z.shape == (127,) and torch.isfinite(z).all() and d <= 1e-3, (
+        f"Eagle planar BMPS: max site |dZ| vs BP {d:.3e} (bar 1e-3)")
+    ms = call_ms(lambda: expect(state.tensors, z_op), reps=1)
+    log("measure", f"{card}: Eagle-127 chi=8 after 2 layers, planar BMPS "
+                   f"(rank {BMPS_RANK}): all-site <Z> mean {float(z.mean()):.6f}, "
+                   f"max site |dZ| vs BP {d:.2e} (bar 1e-3); {ms:.1f} ms per "
+                   f"evaluation")
+
+
+def measure_noisy(tt, dev, spec, state, card):
+    """The noisy path's d=4 state (5x5, χ=8): purity and the density-matrix
+    sampler."""
+    tp = tt.parallel
+    purity = float(tp.batched_purity(spec, state))
+    log2p = float(tp.batched_purity(spec, state, log2=True))
+    assert 0.0 < purity <= 1.0 + 1e-5 and abs(2.0 ** log2p - purity) <= 1e-5, (
+        f"noisy: purity {purity}, log2 {log2p}")
+    S = MEASURE_SAMPLES
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    sampler = tp.make_rho_sampler(spec, state.chi, state.tensors.dtype)
+    bits, logps = sampler(state, S, gen)
+    assert bits.shape == (S, spec.num_vertices) and int(bits.min()) >= 0 and (
+        int(bits.max()) <= 1)
+    assert torch.isfinite(logps).all() and float(logps.max()) <= 1e-6, (
+        "noisy: rho sampler logps not finite or positive")
+    ms = call_ms(lambda: sampler(state, S, gen), reps=1)
+    log("measure", f"{card}: noisy 5x5 d=4 chi=8 state: purity {purity:.6f} "
+                   f"(log2 {log2p:.5f}); rho sampler {S} samples, logps in "
+                   f"[{float(logps.min()):.3f}, {float(logps.max()):.3f}], "
+                   f"{S / ms * 1e3:.1f} samples/s ({ms:.1f} ms per {S})")
+
+
+def busy_shares(profiled: dict, card) -> None:
+    """The device's busy share of each call in ``profiled`` (name → (call,
+    its milliseconds without the profiler)): the device time of every
+    kernel and copy ``torch.profiler`` traced, over the call's time
+    without the profiler (the trace stretches the host's part of the wall,
+    not the kernels).  Run last: the profiler stays attached and slows
+    later launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, (fn, plain_ms) in profiled.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: a host operator's entry repeats the
+        # device time of the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        ops = sum(e.count for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+        share = (f"{100 * busy_ms / plain_ms:.1f}%" if busy_ms > 0
+                 else "not measured")
+        log("measure", f"{card}: {name}: device busy {share} ({busy_ms:.1f} "
+                       f"ms in {ops} device operations, over {plain_ms:.1f} "
+                       f"ms per call without the profiler; {traced_ms:.1f} ms "
+                       f"under it); most device time: "
+                       f"{[(e.key[:48], round(e.self_device_time_total / 1e3, 1)) for e in top]}")
 
 
 def layers_per_second(tt, dev, name, nlayers, env) -> float:
@@ -1046,9 +1429,10 @@ def colour_groups(tt) -> None:
                       f"group: {sizes}; PYTHONHASHSEED {seed}")
 
 
-# layers each counted main path runs (the ensemble's of 8 members)
+# layers each counted main path runs (the ensemble's of 8 members; the
+# measure path is one call of ``batched_truncate``)
 LAYERS = {"chi10": 5, "chi64": 2, "rolled": 10, "ensemble": ENSEMBLE_LAYERS,
-          "noisy": NOISY_LAYERS}
+          "noisy": NOISY_LAYERS, "measure": 1}
 TIMES_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
               "unit", "fp32_bound_ms", "flops", "bytes", "library_ms",
               "library_device_ms", "host_us", "library_host_us",
@@ -1173,13 +1557,22 @@ def main() -> int:
         paths["ensemble"], t_ens, t_single = ensemble_check(
             tt, dev, engine, counters, ("K1", "K2"))
     done("ensemble")
-    paths["noisy"] = noisy_layers(tt, dev, counters)
+    paths["noisy"], noisy_spec, noisy_state = noisy_layers(tt, dev, counters)
     done("noisy")
     paths["microbench"] = microbench_phase(counters)
     done("microbench")
+
+    # 11. the measurement half
+    card = smi[0] if smi else kind
+    paths["measure"], profiled = measure_grid(tt, dev, engine, counters, targets,
+                                          cl, cb, card)
+    measure_eagle(tt, dev, card)
+    measure_noisy(tt, dev, noisy_spec, noisy_state, card)
+    del noisy_state
+    done("measure")
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
 
-    # 11. times
+    # 12. times
     for name, n, on in (("chi10", 20, FAST_STACK),
                         ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1")),
                         ("chi10_rolled", 20, FAST_STACK)):
@@ -1285,6 +1678,8 @@ def main() -> int:
                          f"({e['flops']:.3g} {e['unit']} flops, "
                          f"{e['bytes']:.3g} B){fp32}{extra}")
     done("times")
+    busy_shares(profiled, card)
+    done("busy")
 
     meta = {
         "K1": ("jacobi_pseudo_roots",

@@ -2,8 +2,10 @@
 
 The counterpart of ``tensornetworkquantumsimulator_tpu`` (JAX on a TPU),
 which stays the reference.  This package covers the single-device batched
-Trotter-layer path: lattice → slot tables → product state → compiled
-layer (flooding BP + fused colour-group simple update) → BP ⟨Z⟩.  Its
+path: lattice → slot tables → product state → compiled layer (flooding BP
++ fused colour-group simple update) → BP ⟨Z⟩, and the measurement half
+in ``parallel`` (Vidal gauge, truncation, overlaps, samplers, path
+correlators, boundary MPS, certified sampling).  Its
 Pallas kernels are hand-written CUDA for Hopper (``csrc/``), built with
 ``nvcc`` at first use.  The package imports ``torch`` and never ``jax``.
 Its entry points run on CUDA unless asked for another device

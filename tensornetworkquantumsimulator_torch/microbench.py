@@ -39,6 +39,8 @@ import time
 import numpy as np
 import torch
 
+from .parallel.cuda_linalg import library_qr
+
 OPS = ("svd", "gram", "eigh", "qr", "matmul", "cmatmul", "cpallas", "jeigh")
 SWEEP_SHAPES = ((16, 40), (8, 128))
 SWEEP_M_POINTS = (400, 4000)
@@ -47,21 +49,6 @@ SWEEP_M_POINTS = (400, 4000)
 def _reconstruct(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """V diag(w) V† from an eigendecomposition."""
     return (v * w[..., None, :].to(v.dtype)) @ v.mH
-
-
-def library_qr(a: torch.Tensor):
-    """``torch.linalg.qr`` of a batch, one matrix per call.
-
-    On CUDA torch takes cuBLAS's batched geqrf for a batch of small
-    matrices, which returns NaN for complex matrices whose columns are
-    exactly equal; one matrix per call takes cuSOLVER's geqrf, which does
-    not.  The chain of :func:`step` converges to such a matrix
-    (the +1e-3 shift comes to dominate, so all entries tend to one value),
-    and on an H100 (torch 2.11 + CUDA 12.8) the batched QR turned the
-    [8,128,128] chain to NaN at step 340 and the [16,40,40] one at step
-    1171."""
-    q, r = zip(*(torch.linalg.qr(m) for m in a))
-    return torch.stack(q), torch.stack(r)
 
 
 def step(op: str, a: torch.Tensor) -> torch.Tensor:

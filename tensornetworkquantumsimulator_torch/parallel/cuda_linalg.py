@@ -111,6 +111,20 @@ def eigh_plain(h: torch.Tensor):
     return torch.linalg.eigh(h)
 
 
+def library_qr(a: torch.Tensor):
+    """``torch.linalg.qr`` of a batch, one matrix per call.
+
+    On CUDA torch takes cuBLAS's batched geqrf for a batch of small
+    matrices, which returns NaN for complex matrices whose columns are
+    exactly equal; one matrix per call takes cuSOLVER's geqrf, which does
+    not.  The microbenchmark's chains converge to such a matrix (on an H100
+    with torch 2.11 + CUDA 12.8 the batched QR turned the [8,128,128] chain
+    to NaN at step 340 and the [16,40,40] one at step 1171), and the
+    certified sampler's padded strands start from one."""
+    q, r = zip(*(torch.linalg.qr(m) for m in a))
+    return torch.stack(q), torch.stack(r)
+
+
 def pseudo_roots_plain(h: torch.Tensor):
     """Plain version of K1: library eigh → clip → reconstructions."""
     return clip_roots(*eigh_plain(h))

@@ -1,18 +1,26 @@
-"""Sandwich BP and Pauli expectations of density-matrix states.
+"""Batched ⟨ψ|ϕ⟩ overlaps: BP on the two-layer sandwich.
 
-The counterpart of the d=4 readout of
-``tensornetworkquantumsimulator_tpu.parallel.overlap``: flooding BP on the
-two-layer ψ̄ϕ sandwich (the engine's message update with the bra layer in
-place of ``conj(ket)``), and :func:`make_pauli_expectation_fn`, the
-per-site ⟨P⟩ of a batched "PauliRho" (d=4) state.  The rest of the
-reference module (overlaps, purity, echoes, differentiable sweeps) is not
-ported yet.
+The counterpart of ``tensornetworkquantumsimulator_tpu.parallel.overlap``
+(`inner.jl:53-98`): the sandwich never materializes.  The flooding-BP
+message update is the engine's, with the bra layer threaded through the
+contraction in place of ``conj(ket)`` (the only place the two layers
+differ), so a Loschmidt echo ⟨ψ(0)|ψ(t)⟩, a truncation fidelity, the
+purity of a density-matrix state or its per-site ⟨P⟩
+(:func:`make_pauli_expectation_fn`) costs one fixed-point loop.
 
 Sandwich messages are NOT hermitian (the two layers differ), so message
 normalization skips the hermitization the norm BP applies.
+
+Overlaps are returned as ``(log_abs, phase)`` (``exp(log_abs + i·phase)``):
+overlaps of large lattices under- or overflow any float; callers
+exponentiate differences, e.g. a normalized echo
+``exp(log|⟨ψ|ϕ⟩| − ½log⟨ψ|ψ⟩ − ½log⟨ϕ|ϕ⟩)``.  The phase is a sum of
+principal values, meaningful modulo 2π.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -47,6 +55,71 @@ def _sandwich_bp(spec, t_ket, t_bra_conj, messages, maxiter, tolerance,
 
     return _fixed_point(iterate, messages, tables.mask, maxiter, tolerance,
                         damping)
+
+
+def sandwich_sweeps(spec, t_ket, t_bra_conj, messages, num_sweeps,
+                    damping: float = 0.0, tables=None):
+    """``num_sweeps`` sandwich-BP sweeps as a plain loop that autograd can
+    cross: the fixed-count counterpart of the tolerance loop in
+    :func:`batched_inner` (used by an overlap-penalty loss)."""
+    if tables is None:
+        tables = graph_tables(spec, t_ket.device)
+    m = messages
+    for _ in range(num_sweeps):
+        m_out = outgoing_messages_einsum(t_ket, m, t_bra_conj)
+        new = _normalize_messages(m_out[tables.nbr, tables.nbr_slot],
+                                  tables.mask, hermitize_=False)
+        if damping:
+            new = _normalize_messages((1 - damping) * new + damping * m,
+                                      tables.mask, hermitize_=False)
+        m = new
+    return m
+
+
+def sandwich_logz(spec, t_ket, t_bra_conj, m):
+    """Z_BP of the sandwich at message state ``m`` as ``(log_abs, phase)``
+    (vertex/edge scalar algebra of `abstractbeliefpropagationcache.
+    jl:252-267` on the two-layer network)."""
+    D = spec.degree
+    acc = t_ket
+    for k in range(D):
+        acc = _absorb(acc, m[:, k], 1 + k)
+    lab = "".join(_LETTERS[k] for k in range(D))
+    zv = torch.einsum(f"v{lab}s,v{lab}s->v", acc, t_bra_conj)
+    edges = torch.as_tensor(np.asarray(spec.edges, dtype=np.int64),
+                            device=m.device)
+    m_at_v = m[edges[:, 1], edges[:, 3]]
+    m_at_u = m[edges[:, 0], edges[:, 2]]
+    se = torch.einsum("eab,eab->e", m_at_v, m_at_u)
+    cdtype = torch.promote_types(t_ket.dtype, torch.complex64)
+    lzv = torch.log(zv.to(cdtype))
+    lse = torch.log(se.to(cdtype))
+    return lzv.real.sum() - lse.real.sum(), lzv.imag.sum() - lse.imag.sum()
+
+
+def batched_inner(
+    spec: BatchedGraphSpec,
+    psi: BatchedState,
+    phi: BatchedState,
+    *,
+    maxiter: int = 50,
+    tolerance: float | None = None,
+    damping: float = 0.0,
+):
+    """Sandwich-BP overlap (`inner.jl:53-98`, alg="bp"): ``psi`` is the ket
+    and ``phi`` is conjugated, i.e. this returns Σ ψ(x)·conj(ϕ(x)) = ⟨ϕ|ψ⟩
+    as ``(log_abs, phase)``, two 0-dim real tensors on the states' device."""
+    t_ket = psi.tensors
+    t_bra_conj = phi.tensors.conj()
+    if tolerance is None:
+        tolerance = default_batched_tolerance(t_ket.dtype)
+    tables = graph_tables(spec, t_ket.device)
+    m0 = identity_messages(spec.num_vertices, spec.degree, t_ket.shape[1],
+                           t_ket.dtype, t_ket.device)
+    m = _sandwich_bp(spec, t_ket, t_bra_conj, m0, maxiter, tolerance,
+                     damping, tables)
+    # Z_BP = Π_v z_v / Π_e s_e on the sandwich
+    return sandwich_logz(spec, t_ket, t_bra_conj, m)
 
 
 def make_pauli_expectation_fn(
@@ -101,3 +174,51 @@ def make_pauli_expectation_fn(
         return {op: (torch.einsum(eq, acc, bras[op]) / zv).real for op in ops}
 
     return fn
+
+
+def batched_purity(
+    spec: BatchedGraphSpec,
+    state: BatchedState,
+    *,
+    log2: bool = False,
+    maxiter: int = 50,
+    tolerance: float | None = None,
+):
+    """Tr[ρ²]/Tr[ρ]² of a batched density-matrix ("PauliRho", d=4) state.
+
+    With ρ a ⊗-network of Pauli coefficients c: Tr[ρ²] = ‖c‖²/2ⁿ (one
+    self-sandwich fixed point) and Tr[ρ] is the overlap against the bond-1
+    trace-vector product bra, both in log space, so ``log2=True`` returns
+    log₂ of the value (finite at any size; the second Rényi entropy is its
+    negation) while the default exponentiates."""
+    t = state.tensors
+    V, D = spec.num_vertices, spec.degree
+    la, _ = batched_inner(spec, state, state, maxiter=maxiter,
+                          tolerance=tolerance)
+    tr_t = torch.zeros_like(t)
+    tr_t[(slice(None),) + (0,) * D + (0,)] = 1.0
+    lt, _ = batched_inner(spec, state, BatchedState(tr_t, state.messages),
+                          maxiter=maxiter, tolerance=tolerance)
+    log2p = (la - V * math.log(2.0) - 2.0 * lt) / math.log(2.0)
+    return log2p if log2 else 2.0 ** log2p
+
+
+def batched_loschmidt_echo(
+    spec: BatchedGraphSpec,
+    psi0: BatchedState,
+    psit: BatchedState,
+    log_norm0=None,
+    **kwargs,
+):
+    """Normalized echo |⟨ψ₀|ψ_t⟩| / (‖ψ₀‖·‖ψ_t‖) as ``(log_abs, phase)``.
+
+    The phase follows the ⟨ψ₀|ψ_t⟩ = Σ conj(ψ₀(x))·ψ_t(x) numerator
+    (:func:`batched_inner` conjugates its SECOND argument, so ψ_t goes
+    first).  ``log_norm0`` optionally carries a precomputed log⟨ψ₀|ψ₀⟩: on
+    a trajectory it never changes, so computing it once saves a third of
+    each step's fixed-point work."""
+    l01, p01 = batched_inner(spec, psit, psi0, **kwargs)
+    if log_norm0 is None:
+        log_norm0, _ = batched_inner(spec, psi0, psi0, **kwargs)
+    ltt, _ = batched_inner(spec, psit, psit, **kwargs)
+    return l01 - 0.5 * log_norm0 - 0.5 * ltt, p01
