@@ -54,7 +54,12 @@ Phases, each printing its checks and seconds:
    amplitude damping) on the 5x5 grid at χ=8 against
    ``BatchedCircuit(picture="rho")`` + ``make_layer_fn`` at the same rates,
    through the sandwich-BP readout: ⟨Z⟩ and ⟨X⟩ to 1e-4; K1 must launch;
-   it runs the fast stack with the SVD split (``SVD_STACK``);
+   it runs the fast stack with the SVD split (``SVD_STACK``); then ``qr``:
+   the chi10, chi64 and noisy layers from their product states with no
+   ``TNQS_*`` knob set (the package default), every matrix handed to
+   ``engine._qr_split`` recorded; each batch must split into finite Q and
+   R, |QR - A|/|A| <= 1e-5, |diag R| within 1e-4 of ``library_qr``'s (one
+   matrix per call); a NaN fails the run;
 10. ``microbench``: every op of ``tensornetworkquantumsimulator_torch.
    microbench`` at its sweep shapes (16,40) and (8,128), with small M
    points; ``cpallas`` must launch K4;
@@ -77,7 +82,24 @@ Phases, each printing its checks and seconds:
    1e-3.  On the noisy path's d=4 state: purity in (0, 1] and 32
    density-matrix samples with finite ``logps``.  Times (CUDA events after
    one warm-up call) stand beside the card's name and power limit;
-12. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
+12. ``loops``: on the measure phase's 5x5 χ=10 and Eagle χ=8 states, with
+   the native subgraph enumerator (``csrc/subgraphs.cpp``, built with g++;
+   the run fails if it does not load): Z_BP against the Bethe free energy
+   at the state's messages to 1e-4; loop-corrected Z at
+   max_configuration_size 4, 6, 8 (16, 40, 221 configurations) on the grid
+   and 12 (18 heavy-hex 12-cycles) on Eagle, each against the same call on
+   the CPU; loop-corrected ⟨Z⟩ on all 25 grid sites at size 4, closer to
+   the rank-24 boundary MPS than BP's, and on 8 Eagle sites at size 12;
+   times (CUDA events after one warm-up) and the host-side enumeration's
+   apart.  No kernel launches here;
+13. ``variational``: 3x3 TFIM χ=4 complex64, 400 Adam steps, within 5% of
+   the dense ground energy; 5x5 TFIM at χ=4, 100 steps timed and the first
+   gradient in complex128 against the CPU to 1e-8; Eagle-127 Heisenberg at
+   χ=4 with ``TNQS_BP_KERNEL=1``: K3 0 launches under grad with the
+   gradient equal to the kernel-off one, K3 > 0 under ``torch.no_grad()``
+   with the same energy; an ensemble of 4 disorder realizations, 20 steps,
+   each member within 1e-5 of its single run;
+14. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
    and off (CUDA events, after warm-up), chi64 with K3 off / on / on / off;
    then each kernel on the batches of phase 2 that have the main path's
    shapes (K4: the microbenchmark's and [8,512,512]): its call time (host
@@ -93,11 +115,12 @@ Phases, each printing its checks and seconds:
    its peak memory.
 
 At the very end ``torch.profiler`` reads the device's busy share of the
-BMPS evaluation and of the two samplers.
+BMPS evaluation, of the two samplers, of the all-site loop-corrected ⟨Z⟩
+and of one variational step.
 
-Each main path (chi10, chi64, rolled, ensemble, noisy, microbench,
-measure) runs with every launch counter set to 0 just before it and read
-just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
+Each main path (chi10, chi64, rolled, ensemble, noisy, qr, microbench,
+measure, loops, variational and its no-grad energy) runs with every launch
+counter set to 0 just before it and read just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -997,6 +1020,107 @@ def noisy_layers(tt, dev, counters):
     return launches, spec, state_a
 
 
+@contextlib.contextmanager
+def package_defaults():
+    """Every ``TNQS_*`` knob unset: the stack a user gets (library eigh,
+    library SVD split, the library QR of ``engine._qr_split``, no K3)."""
+    old = {k: v for k, v in os.environ.items() if k.startswith("TNQS_")}
+    for k in old:
+        del os.environ[k]
+    try:
+        yield
+    finally:
+        os.environ.update(old)
+
+
+@contextlib.contextmanager
+def every_call(module, attr):
+    """Record every first argument handed to ``module.attr`` (a clone)."""
+    calls, fn = [], getattr(module, attr)
+
+    def recorded(a, *args):
+        calls.append(a.detach().clone())
+        return fn(a, *args)
+
+    setattr(module, attr, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+def qr_phase(tt, dev, engine, cl, counters):
+    """The default QR split on the card: the chi10 (5 layers), chi64 (2)
+    and noisy (2) layers from their product states with no ``TNQS_*`` knob
+    set, every matrix handed to ``engine._qr_split`` recorded (the first
+    layers' padded bonds are zero columns, i.e. equal columns).  Each batch
+    must split into finite Q and R with |QR - A|/|A| <= 1e-5 per matrix,
+    and |diag R| must match ``library_qr`` (one matrix per call) to 1e-4 of
+    the matrix's largest.  Returns the launches (counted over the three
+    runs)."""
+    def noisy_run():
+        g = tt.named_grid((5, 5))
+        spec, st = tt.batched_product_state(g, chi=8, state_fn=lambda v: "0",
+                                            dtype=torch.complex64, d=4,
+                                            device=dev)
+        rates = torch.tensor([NOISY["p_dep"], NOISY["gam"]], device=dev)
+        _, noisy = tt.parallel.make_noisy_field_layer_fn(
+            g, 8, site_pauli="X", bond_pauli="ZZ",
+            noise=("depolarizing", "amplitude_damping"), spec=spec,
+            device=dev, cutoff=1e-10, normalize_tensors=False, bp_maxiter=25)
+        for _ in range(NOISY_LAYERS):
+            st, errs = noisy(st, NOISY["th"], NOISY["phi"], rates)
+        assert torch.isfinite(errs).all(), "qr: noisy layer not finite"
+
+    recorded = {}
+
+    def run():
+        for name, n in (("chi10", LAYERS["chi10"]), ("chi64", LAYERS["chi64"]),
+                        ("noisy", NOISY_LAYERS)):
+            with every_call(engine, "_qr_split") as calls:
+                if name == "noisy":
+                    noisy_run()
+                else:
+                    run_layers(tt, dev, name, n, {})
+            recorded[name] = calls
+
+    with package_defaults():
+        launches, _ = counted(counters, "qr", (), run)
+        for name, calls in recorded.items():
+            worst, zero_cols, shapes = {"recon": 0.0, "diag": 0.0}, 0, set()
+            for a in calls:
+                q, r = engine._qr_split(a)
+                finite = bool(torch.isfinite(torch.view_as_real(q)).all()
+                              and torch.isfinite(torch.view_as_real(r)).all())
+                assert finite, f"qr {name} {tuple(a.shape)}: Q or R not finite"
+                na = torch.linalg.matrix_norm(a)
+                recon = float((torch.linalg.matrix_norm(q @ r - a)
+                               / torch.where(na == 0, torch.ones_like(na), na)
+                               ).max())
+                _, r_lib = cl.library_qr(a)
+                d, d_lib = (torch.diagonal(x, dim1=-2, dim2=-1).abs()
+                            for x in (r, r_lib))
+                scale = d_lib.max(-1, keepdim=True).values
+                scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+                diag = float(((d - d_lib).abs() / scale).max())
+                assert recon <= 1e-5 and diag <= 1e-4, (
+                    f"qr {name} {tuple(a.shape)}: |QR-A|/|A| {recon:.3e} (bar "
+                    f"1e-5), |diag R| vs library_qr {diag:.3e} (bar 1e-4)")
+                worst = {"recon": max(worst["recon"], recon),
+                         "diag": max(worst["diag"], diag)}
+                zero_cols += int((a.abs().sum(-2) == 0).sum())
+                shapes.add(tuple(a.shape))
+            assert calls, f"qr: {name} never reached _qr_split"
+            log("qr", f"{name} with no TNQS_* knob: {len(calls)} batches to "
+                      f"_qr_split, shapes {sorted(shapes)}, {zero_cols} zero "
+                      f"(padded) columns in all; every Q and R finite; worst "
+                      f"|QR-A|/|A| {worst['recon']:.2e} (bar 1e-5), |diag R| "
+                      f"vs library_qr {worst['diag']:.2e} (bar 1e-4)")
+        del recorded
+    log("qr", f"launches {launches} (the default stack takes no kernel)")
+    return launches
+
+
 MICRO_M_POINTS = (4, 16)
 
 
@@ -1082,7 +1206,9 @@ def measure_grid(tt, dev, engine, counters, targets, cl, cb, card):
     """The 5x5 TFIM χ=10 complex64 state the chi10 path leaves, measured
     every way the port offers; each step asserts.  ``batched_truncate`` on
     the fast stack is the counted path (K1 and K2 must launch).  Returns
-    (launches, the calls whose device busy share is read at the end)."""
+    (launches, the calls whose device busy share is read at the end, the
+    state with its BP ⟨Z⟩ and rank-24 BMPS ⟨Z⟩ for the loop
+    corrections)."""
     tp = tt.parallel
     cert_mod = tp.certified_sampling
     z_op = tt.op_matrix("Z", 2)
@@ -1310,12 +1436,14 @@ def measure_grid(tt, dev, engine, counters, targets, cl, cb, card):
         f"BP sampler, {S} samples": (lambda: bp_sampler(state, S, gen),
                                      times["bp_samples"]),
     }
-    return launches, profiled
+    grid = {"spec": spec, "state": state, "z_bp": z_bp, "z_bmps": z_wide}
+    return launches, profiled, grid
 
 
 def measure_eagle(tt, dev, card):
     """IBM Eagle, 127 qubits, χ=8, two kicked-Ising layers: the planar
-    boundary MPS (identity wires on the column grid) against BP."""
+    boundary MPS (identity wires on the column grid) against BP.  Returns
+    the state with its BP and BMPS ⟨Z⟩ for the loop corrections."""
     spec, _, state, z_bp = evolved(tt, dev, "heavyhex", 2, FAST_STACK)
     _, expect = tt.parallel.make_planar_bmps(spec, kmps=BMPS_RANK)
     z_op = tt.op_matrix("Z", 2)
@@ -1328,6 +1456,7 @@ def measure_eagle(tt, dev, card):
                    f"(rank {BMPS_RANK}): all-site <Z> mean {float(z.mean()):.6f}, "
                    f"max site |dZ| vs BP {d:.2e} (bar 1e-3); {ms:.1f} ms per "
                    f"evaluation")
+    return {"spec": spec, "state": state, "z_bp": z_bp, "z_bmps": z}
 
 
 def measure_noisy(tt, dev, spec, state, card):
@@ -1351,6 +1480,338 @@ def measure_noisy(tt, dev, spec, state, card):
                    f"(log2 {log2p:.5f}); rho sampler {S} samples, logps in "
                    f"[{float(logps.min()):.3f}, {float(logps.max()):.3f}], "
                    f"{S / ms * 1e3:.1f} samples/s ({ms:.1f} ms per {S})")
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: loop corrections and the variational path
+# ---------------------------------------------------------------------------
+
+# configurations of the 5x5 grid by max_configuration_size (at 8, 78 of the
+# 221 are two disjoint components), and Eagle's heavy-hex 12-cycles
+GRID_LOOPS = {4: 16, 6: 40, 8: 221}
+GRID_PAIRS_AT_8 = 78
+EAGLE_LOOP_SIZE, EAGLE_LOOPS = 12, 18
+EAGLE_LC_SITES = 8
+# loop-corrected Z and <Z>, card vs CPU, relative: two runs on an H100 read
+# Z 1.5e-5 / 7.7e-6 on the grid and 1.6e-5 / 1.5e-5 on Eagle, <Z> 1.9e-6 /
+# 2.3e-6 on the grid
+LOOP_CPU_BAND = 1e-4
+
+
+def rel_err(a, b) -> float:
+    a, b = (torch.as_tensor(x).detach().cpu().to(torch.complex128)
+            for x in (a, b))
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def loops_phase(tt, dev, counters, grid, eagle, card):
+    """Loop corrections on the 5x5 χ=10 state of the measure phase and on
+    its Eagle-127 χ=8 state, counted (no kernel of the port runs here).
+    log Z_BP (Π z_v / Π s_e) against the Bethe free energy of
+    ``overlap.sandwich_logz`` at the same messages; loop-corrected Z at
+    max_configuration_size 4, 6, 8 on the grid and 12 on Eagle, each
+    against the same call on the CPU (Eagle's Z_BP, e^(log Z_BP), is below
+    complex64's normal range, so its series runs on the rescaled state, whose
+    Z_BP is 1); loop-corrected ⟨Z⟩ on all 25 grid sites at size 4, closer
+    to the rank-24 boundary MPS than BP's, and on 8 Eagle sites at size 12.
+    Times: CUDA events after one warm-up call; the host-side enumeration
+    (``LoopConfigurations``) timed apart.  Returns the launches and the
+    grid's all-site ⟨Z⟩ call for the busy-share read at the end."""
+    from tensornetworkquantumsimulator_torch import native
+
+    tp = tt.parallel
+    assert native.get_subgraphs() is not None, (
+        "loops: the native subgraph enumerator did not build or load")
+    log("loops", f"enumerator: native, csrc/subgraphs.cpp built with g++ "
+                 f"into {native.library_path().relative_to(REPO)}")
+    times, host = {}, {}
+    cases = {"grid": (grid, tt.named_grid((5, 5)), sorted(GRID_LOOPS)),
+             "eagle": (eagle, tt.ibm_eagle_lattice(), [EAGLE_LOOP_SIZE])}
+
+    def run():
+        out = {}
+        for name, (c, g, sizes) in cases.items():
+            spec, state = c["spec"], c["state"]
+            zstate = state if name == "grid" else tp.rescale(spec, state)
+            log_zbp = (torch.log(tp.vertex_scalars(spec, state)).sum()
+                       - torch.log(tp.edge_scalars(spec, state)).sum())
+            zbp = tp.batched_partitionfunction(spec, zstate)
+            cfgs = {}
+            for n in sizes:
+                t0 = time.perf_counter()
+                cfgs[n] = tp.LoopConfigurations(spec, g, n)
+                host[(name, n)] = time.perf_counter() - t0
+            z = {n: tp.batched_loopcorrected_partitionfunction(
+                spec, zstate, g, configurations=cfgs[n]) for n in sizes}
+            step = len(spec.vertices) // EAGLE_LC_SITES
+            sites = (list(spec.vertices) if name == "grid"
+                     else list(spec.vertices)[::step][:EAGLE_LC_SITES])
+            t0 = time.perf_counter()
+            fn = tp.make_loopcorrected_expectations(
+                spec, g, [("Z", [v]) for v in sites],
+                max_configuration_size=sizes[0])
+            host[(name, "expect")] = time.perf_counter() - t0
+            out[name] = (zstate, log_zbp, zbp, cfgs, z, sites, fn, fn(state))
+        torch.cuda.synchronize()
+        return out
+
+    launches, out = counted(counters, "loops", (), run)
+    assert not any(launches.values()), f"loops: kernels launched {launches}"
+    for name, (zstate, log_zbp, zbp, cfgs, z, sites, fn, lc) in out.items():
+        c, g, sizes = cases[name]
+        spec, state = c["spec"], c["state"]
+
+        def on_cpu(st):
+            return st._replace(tensors=st.tensors.cpu(),
+                               messages=st.messages.cpu())
+
+        m = state.messages
+        bethe = float(tp.overlap.sandwich_logz(
+            spec, state.tensors, state.tensors.conj(), m)[0])
+        d_log = abs(float(log_zbp.real) - bethe) / max(abs(bethe), 1.0)
+        assert torch.isfinite(torch.view_as_real(zbp)).all() and (
+            float(zbp.abs()) > 0) and d_log <= 1e-4, (
+            f"loops {name}: log|Z_BP| {float(log_zbp.real):.6f} vs "
+            f"sandwich_logz {bethe:.6f}: {d_log:.3e} (bar 1e-4), Z_BP "
+            f"{complex(zbp)}")
+        head = (f"log|Z_BP| {float(log_zbp.real):.6f} vs sandwich_logz "
+                f"{bethe:.6f} ({d_log:.2e}, bar 1e-4)")
+        if name == "grid":
+            d_z = abs(float(torch.log(zbp.abs())) - bethe) / max(abs(bethe), 1)
+            assert d_z <= 1e-4, f"loops grid: log|batched_partitionfunction| {d_z:.3e}"
+            counts = {n: cfgs[n].n_configurations for n in sizes}
+            pairs = len(cfgs[8].groups.get(2, ()))
+            assert counts == GRID_LOOPS and pairs == GRID_PAIRS_AT_8, (
+                f"loops grid: configurations {counts}, pairs at 8 {pairs}")
+            head += (f", log|batched_partitionfunction| off by {d_z:.2e}; "
+                     f"configurations {counts}, {pairs} of them two-component "
+                     f"at 8")
+        else:
+            n = cfgs[EAGLE_LOOP_SIZE].n_configurations
+            assert n == EAGLE_LOOPS, f"loops eagle: {n} configurations"
+            head += (f"; {n} heavy-hex {EAGLE_LOOP_SIZE}-cycles, on the "
+                     f"rescaled state (Z_BP = {complex(zbp):.6f})")
+        parts = []
+        for n in sizes:
+            assert torch.isfinite(torch.view_as_real(z[n])).all(), (
+                f"loops {name}: Z at size {n} not finite")
+            z_cpu = tp.batched_loopcorrected_partitionfunction(
+                spec, on_cpu(zstate), g, configurations=cfgs[n])
+            d = rel_err(z[n], z_cpu)
+            assert d <= LOOP_CPU_BAND, (
+                f"loops {name}: Z at size {n} card vs CPU {d:.3e} (bar "
+                f"{LOOP_CPU_BAND})")
+            times[(name, n)] = call_ms(
+                lambda n=n: tp.batched_loopcorrected_partitionfunction(
+                    spec, zstate, g, configurations=cfgs[n]))
+            parts.append(f"size {n}: Z/Z_BP - 1 = "
+                         f"{complex(z[n] / zbp - 1):.4e}, card vs CPU {d:.2e}")
+            if name == "eagle":
+                # the series' correction term itself (Z = Z_BP (1 + it)),
+                # which 1 + it cannot resolve in complex64 on this state
+                corr = [complex(cfgs[n].correction_sum(
+                    tp.loopcorrection._configuration_weights(
+                        spec, tp.rescale(spec, st), cfgs[n])))
+                    for st in (zstate, on_cpu(zstate))]
+                parts.append(f"correction sum {corr[0]:.4e} (CPU "
+                             f"{corr[1]:.4e}; not compared: terms this small "
+                             f"carry no complex64 digits)")
+        log("loops", f"{name}: {head}; " + "; ".join(parts)
+                     + f" (bar {LOOP_CPU_BAND})")
+
+        assert lc.shape == (len(sites),) and torch.isfinite(
+            torch.view_as_real(lc)).all(), f"loops {name}: <Z> not finite"
+        d_cpu = rel_err(lc, fn(on_cpu(state)))
+        assert d_cpu <= LOOP_CPU_BAND, (
+            f"loops {name}: loop-corrected <Z> card vs CPU {d_cpu:.3e}")
+        times[(name, "expect")] = call_ms(lambda fn=fn: fn(state))
+        idx = [spec.vertex_position(v) for v in sites]
+        z_lc = lc.real.cpu().double()
+        z_bp = c["z_bp"][idx].cpu().double()
+        z_bmps = c["z_bmps"][idx].cpu().double()
+        d_lc = float((z_lc - z_bmps).abs().max())
+        d_bp = float((z_bp - z_bmps).abs().max())
+        if name == "grid":
+            assert d_lc < d_bp, (
+                f"loops grid: loop-corrected <Z> {d_lc:.3e} from the rank-"
+                f"{BMPS_RANK_WIDE} BMPS, BP {d_bp:.3e}")
+        log("loops", f"{name}: loop-corrected <Z> (size {sizes[0]}) on "
+                     f"{len(sites)} sites: max site |LC - BMPS| {d_lc:.3e} "
+                     f"beside |BP - BMPS| {d_bp:.3e}"
+                     + (" (LC must be the closer)" if name == "grid" else "")
+                     + f"; card vs CPU {d_cpu:.2e} (bar {LOOP_CPU_BAND})")
+    log("loops", f"{card}: per call after one warm-up (CUDA events): "
+                 + "; ".join(f"{name} Z at size {n} {times[(name, n)]:.2f} ms"
+                             for (name, n) in times if n != "expect")
+                 + "; " + "; ".join(
+                     f"{name} loop-corrected <Z> on {len(out[name][5])} sites "
+                     f"{times[(name, 'expect')]:.2f} ms" for name in out)
+                 + ". Host enumeration (LoopConfigurations, host clock): "
+                 + "; ".join(f"{name} size {n} {host[(name, n)] * 1e3:.1f} ms"
+                             for (name, n) in host if n != "expect")
+                 + "; " + "; ".join(
+                     f"{name} expectation factory {host[(name, 'expect')] * 1e3:.1f} ms"
+                     for name in out))
+    fn, state = out["grid"][6], grid["state"]
+    return launches, {"loop-corrected <Z>, 25 sites, size 4": (
+        lambda: fn(state), times[("grid", "expect")])}
+
+
+VAR_STEPS, VAR_SWEEPS, VAR_DAMPING = 400, 12, 0.1  # tests/test_variational.py:65-79
+VAR_TIMED_STEPS = 100
+ENSEMBLE_GS, ENSEMBLE_GS_STEPS = 4, 20
+
+
+def noised(spec, state, eps, seed):
+    """Symmetry-breaking complex noise on the valid block (dummy slots keep
+    bond dimension 1), as tests/test_variational.py's ``_noised``."""
+    rng = np.random.default_rng(seed)
+    t = state.tensors.cpu().numpy()
+    noise = rng.normal(size=t.shape) + 1j * rng.normal(size=t.shape)
+    mask = spec.mask_array()
+    for k in range(spec.degree):
+        idx = [slice(None)] * t.ndim
+        idx[1 + k] = slice(1, None)
+        noise[tuple(idx)] *= mask[:, k][(slice(None),) + (None,) * (t.ndim - 1)]
+    return state._replace(tensors=torch.from_numpy(
+        (t + eps * noise).astype(t.dtype)).to(state.tensors.device))
+
+
+def variational_phase(tt, dev, counters, card):
+    """Variational ground states on the card.  3x3 TFIM (J=1, hx=3) at χ=4
+    complex64, 400 Adam steps of 12 damped BP sweeps: within 5% of the
+    dense ground energy (tests/dense_oracle.py), finite, below the first
+    energy.  5x5 TFIM at χ=4: 100 steps timed (steps/s), and the first
+    step's gradient in complex128 against the CPU's to 1e-8.  Eagle-127
+    Heisenberg at χ=4 complex64 with ``TNQS_BP_KERNEL=1``: under grad K3
+    launches 0 times and the gradient equals the ``TNQS_BP_KERNEL=0`` one
+    to 1e-5; under ``torch.no_grad()`` K3 launches and the energy equals
+    the grad path's to 1e-4.  An ensemble of 4 disorder realizations on
+    the 5x5 grid, 20 steps, each member within 1e-5 of its single run.
+    Returns {path: launches} (the grad runs, and the no-grad energy) and a
+    one-step 5x5 call for the busy-share read at the end."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from dense_oracle import exact_tfim_levels
+
+    tp = tt.parallel
+    ham = tp.tfim_hamiltonian(J=1.0, hx=3.0)
+    opt = dict(learning_rate=3e-2, bp_sweeps_per_eval=VAR_SWEEPS,
+               damping=VAR_DAMPING)
+
+    def start(g, seed, dtype=torch.complex64, device=dev):
+        spec, s0 = tt.batched_product_state(g, chi=4, dtype=dtype,
+                                            device=device)
+        return spec, noised(spec, s0, 0.1, seed)
+
+    spec3, s3 = start(tt.named_grid((3, 3)), 1)
+    spec5, s5 = start(tt.named_grid((5, 5)), 2)
+    eagle_g = tt.ibm_eagle_lattice()
+    spec_e, s_e = start(eagle_g, 3)
+    heis = tp.heisenberg_hamiltonian()
+    efn_e = tp.make_energy_fn(spec_e, heis, VAR_SWEEPS)
+
+    def eagle_grad(env):
+        with knobs({"TNQS_BP_KERNEL": env}):
+            params = s_e.tensors.clone().requires_grad_(True)
+            e, _ = efn_e(params, s_e.messages)
+            e.backward()
+        return e.detach(), params.grad
+
+    res = {}
+
+    def run():
+        t0 = time.perf_counter()
+        res["3x3"] = tp.ground_state(spec3, s3, ham, steps=VAR_STEPS, **opt)
+        res["3x3"][1].sum().item()
+        res["3x3 s"] = time.perf_counter() - t0
+        res["eagle grad"] = eagle_grad("1")
+        torch.cuda.synchronize()
+
+    launches, _ = counted(counters, "variational", (), run)
+    assert launches["K3"] == 0, f"variational: K3 ran under grad {launches}"
+    _, en3 = res["3x3"]
+    e3 = en3.cpu().numpy()
+    e0 = float(exact_tfim_levels(spec3, 1.0, 3.0, 1)[0])
+    gap = abs(float(e3[-1]) - e0) / abs(e0)
+    assert np.isfinite(e3).all() and gap < 0.05 and e3[-1] < e3[0], (
+        f"variational 3x3: final {e3[-1]:.6f} vs dense {e0:.6f} ({gap:.3e}, "
+        f"bar 5e-2), first {e3[0]:.6f}")
+    log("variational", f"3x3 TFIM chi=4 c64, {VAR_STEPS} steps: E {e3[0]:.5f}"
+                       f" -> {e3[-1]:.5f}, dense {e0:.5f}: {gap:.3e} off (bar "
+                       f"5e-2); {VAR_STEPS / res['3x3 s']:.1f} steps/s (host "
+                       f"clock, first call)")
+
+    # Eagle: K3 under grad and without it
+    e_g, g_on = res["eagle grad"]
+    e_off, g_off = eagle_grad("0")
+    d_grad = rel_err(g_on, g_off)
+    assert d_grad <= 1e-5, f"variational Eagle: grad K3 on/off {d_grad:.3e}"
+
+    def no_grad():
+        with knobs({"TNQS_BP_KERNEL": "1"}), torch.no_grad():
+            e, _ = efn_e(s_e.tensors, s_e.messages)
+            return float(e)
+
+    ng_launches, e_ng = counted(counters, "variational no_grad", ("K3",),
+                                no_grad)
+    d_e = abs(e_ng - float(e_g)) / abs(float(e_g))
+    assert d_e <= 1e-4, f"variational Eagle: no_grad energy {d_e:.3e} off"
+    log("variational", f"Eagle-127 Heisenberg chi=4 c64, {VAR_SWEEPS} sweeps, "
+                       f"TNQS_BP_KERNEL=1: under grad launches {launches} "
+                       f"(K3 0), gradient vs TNQS_BP_KERNEL=0 {d_grad:.2e} "
+                       f"(bar 1e-5); under no_grad launches {ng_launches}, "
+                       f"energy {e_ng:.6f} vs the grad path's {float(e_g):.6f}:"
+                       f" {d_e:.2e} (bar 1e-4)")
+
+    # 5x5: steps/s, and the first gradient in complex128 against the CPU
+    tp.ground_state(spec5, s5, ham, steps=2, **opt)  # warm-up
+    ms5 = time_ms(lambda: tp.ground_state(spec5, s5, ham,
+                                          steps=VAR_TIMED_STEPS, **opt),
+                  reps=1, warmup=0)
+    efn5 = tp.make_energy_fn(spec5, ham, VAR_SWEEPS, VAR_DAMPING)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        params = s5.tensors.to(d, torch.complex128).requires_grad_(True)
+        e, _ = efn5(params, s5.messages.to(d, torch.complex128))
+        e.backward()
+        grads.append(params.grad)
+    d_g5 = rel_err(*grads)
+    assert d_g5 <= 1e-8, f"variational 5x5: c128 gradient card vs CPU {d_g5:.3e}"
+    log("variational", f"{card}: 5x5 TFIM chi=4 c64, {VAR_SWEEPS} sweeps per "
+                       f"step: {VAR_TIMED_STEPS / ms5 * 1e3:.2f} steps/s "
+                       f"({ms5 / VAR_TIMED_STEPS:.2f} ms per step, CUDA events "
+                       f"around {VAR_TIMED_STEPS} steps after a 2-step warm-up"
+                       f" call); first-step gradient in c128 card vs CPU "
+                       f"{d_g5:.2e} (bar 1e-8)")
+
+    # ensemble of disorder realizations in one folded program
+    E, V = ENSEMBLE_GS, spec5.num_vertices
+    hx = np.random.default_rng(6).uniform(2.0, 4.0, (E, V))
+    X, Z = tt.op_matrix("X", 2), tt.op_matrix("Z", 2)
+    kw = dict(steps=ENSEMBLE_GS_STEPS, **opt)
+    t0 = time.perf_counter()
+    _, en = tp.ensemble_ground_state(
+        spec5, tp.stack_states([s5] * E),
+        tp.Hamiltonian(((X, -hx),), ((Z, Z, -1.0),)), **kw)
+    en = en.cpu()
+    t_ens = time.perf_counter() - t0
+    worst = 0.0
+    t0 = time.perf_counter()
+    for e in range(E):
+        _, en_e = tp.ground_state(
+            spec5, s5, tp.Hamiltonian(((X, -hx[e]),), ((Z, Z, -1.0),)), **kw)
+        worst = max(worst, rel_err(en[e], en_e))
+    t_single = (time.perf_counter() - t0) / E
+    assert worst <= 1e-5, f"variational ensemble: member vs single {worst:.3e}"
+    log("variational", f"ensemble of {E} (5x5, per-site hx), "
+                       f"{ENSEMBLE_GS_STEPS} steps: each member's energies vs "
+                       f"its single run {worst:.2e} (bar 1e-5); {t_ens:.2f} s "
+                       f"folded vs {t_single:.2f} s per single run (host clock)")
+    def one_step():
+        return tp.ground_state(spec5, s5, ham, steps=1, **opt)
+
+    return ({"variational": launches, "variational no_grad": ng_launches},
+            {"variational step, 5x5 chi=4": (one_step, call_ms(one_step))})
 
 
 def busy_shares(profiled: dict, card) -> None:
@@ -1559,20 +2020,32 @@ def main() -> int:
     done("ensemble")
     paths["noisy"], noisy_spec, noisy_state = noisy_layers(tt, dev, counters)
     done("noisy")
+    paths["qr"] = qr_phase(tt, dev, engine, cl, counters)
+    done("qr")
     paths["microbench"] = microbench_phase(counters)
     done("microbench")
 
     # 11. the measurement half
     card = smi[0] if smi else kind
-    paths["measure"], profiled = measure_grid(tt, dev, engine, counters, targets,
-                                          cl, cb, card)
-    measure_eagle(tt, dev, card)
+    paths["measure"], profiled, grid = measure_grid(
+        tt, dev, engine, counters, targets, cl, cb, card)
+    eagle = measure_eagle(tt, dev, card)
     measure_noisy(tt, dev, noisy_spec, noisy_state, card)
     del noisy_state
     done("measure")
+
+    # 12-13. loop corrections on the measured states, the variational path
+    paths["loops"], more = loops_phase(tt, dev, counters, grid, eagle, card)
+    profiled.update(more)
+    del grid, eagle
+    done("loops")
+    more_paths, more = variational_phase(tt, dev, counters, card)
+    paths.update(more_paths)
+    profiled.update(more)
+    done("variational")
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
 
-    # 12. times
+    # 14. times
     for name, n, on in (("chi10", 20, FAST_STACK),
                         ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1")),
                         ("chi10_rolled", 20, FAST_STACK)):

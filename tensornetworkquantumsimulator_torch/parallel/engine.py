@@ -306,10 +306,21 @@ def _outgoing_messages(state: BatchedState) -> torch.Tensor:
     """m_out[u, j]: message u sends through slot j
     (`abstractbeliefpropagationcache.jl:144-177`, batched).
     ``TNQS_BP_KERNEL=1`` routes degree-3 states with equal bond legs
-    through the K3 CUDA kernel chain (``cuda_bp.bp_outgoing_d3``)."""
+    through the K3 CUDA kernel chain (``cuda_bp.bp_outgoing_d3``).
+
+    While autograd records a graph through this call (grad mode on, and
+    the tensors or the messages require grad) the einsum chain runs
+    instead: K3 writes its output through a ctypes launch, which leaves no
+    ``grad_fn``, and the JAX kernel it ports has no VJP either.  This is a
+    choice by what the caller needs (a differentiable result), not a
+    retreat from a failed launch; ``cuda_bp.bp_launches`` counts only the
+    calls that reach the kernel."""
     t = state.tensors
     D = t.ndim - 2
-    if os.environ.get("TNQS_BP_KERNEL", "0") == "1" and D == 3:
+    recording = torch.is_grad_enabled() and (
+        t.requires_grad or state.messages.requires_grad)
+    if (os.environ.get("TNQS_BP_KERNEL", "0") == "1" and D == 3
+            and not recording):
         from .cuda_bp import bp_kernel_supported, bp_outgoing_d3
 
         chi, d = t.shape[1], t.shape[-1]

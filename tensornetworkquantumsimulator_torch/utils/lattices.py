@@ -1,7 +1,8 @@
 """Lattice constructors of the batched-engine slice.
 
-A jax-free copy of ``named_grid``, ``heavy_hexagonal_lattice``,
-``ibm_eagle_lattice`` and ``_gate_vertices`` from
+A jax-free copy of ``named_grid``, ``named_path_graph``,
+``named_comb_tree``, ``heavy_hexagonal_lattice``, ``ibm_eagle_lattice`` and
+``_gate_vertices`` from
 ``tensornetworkquantumsimulator_tpu.utils.lattices`` (the reference's
 `graph_ops.jl` geometry).  Vertex naming follows the JAX package exactly, so
 both packages compile the same slot tables.
@@ -49,6 +50,26 @@ def named_grid(dims, periodic=False) -> NamedGraph:
         return g
     if len(dims) == 1:
         return g.rename_vertices(lambda v: v[0])
+    return g
+
+
+def named_path_graph(n: int) -> NamedGraph:
+    g = NamedGraph(range(1, n + 1))
+    for i in range(1, n):
+        g.add_edge_inplace(NamedEdge(i, i + 1))
+    return g
+
+
+def named_comb_tree(dims) -> NamedGraph:
+    """Comb tree: a backbone path (x, 1) with teeth (x, y)
+    (NamedGraphs `named_comb_tree`)."""
+    nx_, ny_ = dims
+    g = NamedGraph([(x, y) for x in range(1, nx_ + 1) for y in range(1, ny_ + 1)])
+    for x in range(1, nx_):
+        g.add_edge_inplace(NamedEdge((x, 1), (x + 1, 1)))
+    for x in range(1, nx_ + 1):
+        for y in range(1, ny_):
+            g.add_edge_inplace(NamedEdge((x, y), (x, y + 1)))
     return g
 
 

@@ -23,7 +23,11 @@ from tensornetworkquantumsimulator_tpu.parallel.structure import (
 from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
 
 LATTICES = {
+    "grid2x2": lambda lat: lat.named_grid((2, 2)),
     "grid3x3": lambda lat: lat.named_grid((3, 3)),
+    "grid5x5": lambda lat: lat.named_grid((5, 5)),
+    "cube2x2x2": lambda lat: lat.named_grid((2, 2, 2)),
+    "eagle": lambda lat: lat.ibm_eagle_lattice(),
     "grid3x4": lambda lat: lat.named_grid((3, 4)),
     "heavyhex1x1": lambda lat: lat.heavy_hexagonal_lattice(1, 1),
     "heavyhex2x2": lambda lat: lat.heavy_hexagonal_lattice(2, 2),

@@ -46,10 +46,12 @@ def _z(spec, state):
 
 
 def test_measurement_modules_import_without_jax():
-    mods = ("gauge", "truncate", "overlap", "sampling", "correlations",
-            "boundarymps", "certified_sampling")
+    mods = tuple(f"parallel.{m}" for m in (
+        "gauge", "truncate", "overlap", "sampling", "correlations",
+        "boundarymps", "certified_sampling", "loopcorrection",
+        "variational")) + ("utils.checks", "measure", "native")
     code = "import sys\n" + "".join(
-        f"import tensornetworkquantumsimulator_torch.parallel.{m}\n"
+        f"import tensornetworkquantumsimulator_torch.{m}\n"
         for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tensornetworkquantumsimulator_tpu'))\n"
@@ -182,3 +184,35 @@ def test_truncate_complex64_fast_stack_within_band(truncated_jax, stack,
     assert out.tensors.dtype == torch.complex64
     assert torch.isfinite(errs).all()
     np.testing.assert_allclose(_z(tspec, out), z_j, atol=1e-4)
+
+
+def test_subgraph_enumerator_builds_into_build_dir(tmp_path):
+    """``csrc/subgraphs.cpp`` is built by g++ into ``build/native/<hash>/``
+    at the root of the checkout, never into the package directory; without
+    g++ the loader reports no library and the Python enumeration runs."""
+    import shutil
+
+    from tensornetworkquantumsimulator_torch import native
+
+    pkg = _REPO / "tensornetworkquantumsimulator_torch"
+    so = native.library_path()
+    assert so.parent.parent == _REPO / "build" / "native"
+    assert pkg not in so.parents
+    if shutil.which("g++") is None:
+        assert native.get_subgraphs() is None
+        return
+    assert native.get_subgraphs() is not None and so.is_file()
+    assert not list(pkg.rglob("*.so"))
+    # a fresh checkout builds the same library into its own build/
+    copy = tmp_path / "checkout"
+    shutil.copytree(pkg, copy / pkg.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = ("from tensornetworkquantumsimulator_torch import native\n"
+            "assert native.get_subgraphs() is not None\n"
+            "print(native.library_path())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=copy,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    built = Path(proc.stdout.strip())
+    assert built.is_file() and copy / "build" / "native" in built.parents
+    assert not list((copy / pkg.name).rglob("*.so"))

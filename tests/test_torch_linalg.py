@@ -236,3 +236,31 @@ def test_pseudo_roots_match_jax_complex128(monkeypatch):
     np.testing.assert_allclose(r @ r, a, atol=1e-10)
     np.testing.assert_allclose(np.linalg.eigvalsh(s), np.linalg.eigvalsh(js),
                                rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.complex64, 1e-5),
+                                        (np.complex128, 1e-12)])
+def test_default_qr_split_padded_and_equal_columns(dtype, tol, monkeypatch):
+    """With no ``TNQS_QR_ALG`` the split is ``torch.linalg.qr`` of the whole
+    batch, as the reference's default (engine.py:120).  Its inputs on the
+    layer path are tall and carry zero-padded bond columns; it must give a
+    finite Q·R = A with upper-triangular R on zero-padded, equal-column and
+    all-zero members (on the card, batches of small square complex matrices
+    with equal columns are where the batched QR returned NaN)."""
+    _set_knob(monkeypatch, "TNQS_QR_ALG", None)
+    rng = np.random.default_rng(11)
+    a = (rng.standard_normal((5, 40, 20))
+         + 1j * rng.standard_normal((5, 40, 20))).astype(dtype)
+    a[:, :, 12:] = 0.0  # padded bond columns
+    a[1] = 0.0088 + 0.0088j  # every column equal
+    a[2] = a[2, :, :1]  # one random column repeated
+    a[3] = 0.0
+    at = torch.from_numpy(a)
+    q, r = te._qr_split(at)
+    q_ref, r_ref = torch.linalg.qr(at)
+    assert torch.equal(q, q_ref) and torch.equal(r, r_ref)
+    q, r = _np(q), _np(r)
+    assert np.isfinite(q).all() and np.isfinite(r).all()
+    assert np.abs(np.tril(r, -1)).max() == 0.0
+    scale = np.abs(a).max()
+    assert np.abs(q @ r - a).max() <= tol * scale
