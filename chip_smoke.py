@@ -99,7 +99,27 @@ Phases, each printing its checks and seconds:
    gradient equal to the kernel-off one, K3 > 0 under ``torch.no_grad()``
    with the same energy; an ensemble of 4 disorder realizations, 20 steps,
    each member within 1e-5 of its single run;
-14. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
+14. ``generic``: the generic named-index engine (``TensorNetworkState``,
+   ``apply_circuit``, ``BeliefPropagationCache``, ``expect``), with both
+   native host libraries (``csrc/pathopt.cpp``, ``csrc/subgraphs.cpp``,
+   built with g++) loaded or the run fails.  (a) the chi10 configuration
+   at full width: 5x5 TFIM, χ=10, cutoff 1e-10, complex64, 5 layers of
+   ``apply_circuit`` (counted: K1-K4 must launch 0 times), BP ⟨Z⟩ on all 25
+   sites within 1e-4 of the batched layer started from the same state
+   through ``batched_from_tns``, with the BP sweeps of both printed; the
+   batched state brought back through ``batched_to_tns`` and
+   ``batched_messages_to_cache`` and read by ``expect`` within 1e-5 of
+   ``local_expectations``.  (b) examples/ising_2d_heisenberg.py at its
+   defaults (4x4, χ=4, 5 steps, Pauli basis): Frobenius norm and both
+   traces.  (c) examples/thermal_states.py (4x4, χ=8, d=4, float64, 8 Strang
+   steps): E/site, ⟨X⟩, S2/site.  (d) one more chi10 layer timed with CUDA
+   events and its host syncs counted (CUDA sync debug mode); (a)-(c)
+   again on the CPU in this process, card against CPU within 1e-4 in (a),
+   1e-5 relative in (b), and in (c) 1e-5 relative on the steps before the
+   χ=8 cap binds and 1e-2 after it (from there the run amplifies rounding;
+   a second CPU run on one thread prints the CPU's own spread), the times
+   side by side;
+15. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
    and off (CUDA events, after warm-up), chi64 with K3 off / on / on / off;
    then each kernel on the batches of phase 2 that have the main path's
    shapes (K4: the microbenchmark's and [8,512,512]): its call time (host
@@ -115,11 +135,12 @@ Phases, each printing its checks and seconds:
    its peak memory.
 
 At the very end ``torch.profiler`` reads the device's busy share of the
-BMPS evaluation, of the two samplers, of the all-site loop-corrected ⟨Z⟩
-and of one variational step.
+BMPS evaluation, of the two samplers, of the all-site loop-corrected ⟨Z⟩,
+of one variational step and of one chi10 layer of the generic engine
+(with its count of device operations).
 
 Each main path (chi10, chi64, rolled, ensemble, noisy, qr, microbench,
-measure, loops, variational and its no-grad energy) runs with every launch
+measure, loops, variational and its no-grad energy, generic) runs with every launch
 counter set to 0 just before it and read just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
@@ -1814,7 +1835,300 @@ def variational_phase(tt, dev, counters, card):
             {"variational step, 5x5 chi=4": (one_step, call_ms(one_step))})
 
 
-def busy_shares(profiled: dict, card) -> None:
+# ---------------------------------------------------------------------------
+# phase 14: the generic named-index engine
+# ---------------------------------------------------------------------------
+
+GENERIC_LAYERS = 5  # (a): the chi10 configuration, 5x5 TFIM at χ=10
+GENERIC_APPLY = dict(maxdim=10, cutoff=1e-10, normalize_tensors=True)
+
+
+@contextlib.contextmanager
+def generic_sweeps(bp):
+    """Sweeps run by each BP update of the generic engine inside: yields a
+    list that gains one count per ``update()`` call."""
+    cls = bp.AbstractBeliefPropagationCache
+    update, sweep = cls.update, cls.update_iteration_inplace
+    refreshes = []
+
+    def recorded_update(self, *args, **kwargs):
+        refreshes.append(0)
+        return update(self, *args, **kwargs)
+
+    def recorded_sweep(self, *args, **kwargs):
+        refreshes[-1] += 1
+        return sweep(self, *args, **kwargs)
+
+    cls.update, cls.update_iteration_inplace = recorded_update, recorded_sweep
+    try:
+        yield refreshes
+    finally:
+        cls.update, cls.update_iteration_inplace = update, sweep
+
+
+@contextlib.contextmanager
+def batched_sweeps(engine, trotter):
+    """Sweeps run by each BP refresh of the batched layer inside."""
+    refreshes = []
+    distance, refresh = engine._message_distance, trotter.bp_update
+
+    def recorded_distance(*args, **kwargs):
+        refreshes[-1] += 1
+        return distance(*args, **kwargs)
+
+    def recorded_refresh(*args, **kwargs):
+        refreshes.append(0)
+        return refresh(*args, **kwargs)
+
+    engine._message_distance, trotter.bp_update = (recorded_distance,
+                                                   recorded_refresh)
+    try:
+        yield refreshes
+    finally:
+        engine._message_distance, trotter.bp_update = distance, refresh
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made): CUDA's sync debug mode warns at each
+    synchronizing call (a device-to-host copy, ``.item()``, a library call
+    that reads its status), and the warnings are counted."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def generic_tfim(tt, dev, layers):
+    """(a): the chi10 configuration (bench.py:272-279) through the generic
+    engine: a product state, ``apply_circuit`` of the 5x5 TFIM layer at
+    χ=10, cutoff 1e-10, complex64, then BP ⟨Z⟩ on all 25 sites."""
+    g = tt.named_grid((5, 5))
+    layer = tfim_layer(tt, g)
+    psi0 = tt.tensornetworkstate(torch.complex64, lambda v: "↑", g,
+                                 device=dev)
+    psi = psi0
+    for _ in range(layers):
+        psi, errs = tt.apply_circuit(layer, psi, apply_kwargs=GENERIC_APPLY)
+    z = np.real(np.array(tt.expect(psi, [("Z", [v]) for v in g.vertices()],
+                                   alg="bp")))
+    assert np.isfinite(z).all() and np.isfinite(errs).all(), "generic: non-finite"
+    return g, layer, psi0, psi, z
+
+
+def heisenberg_example(tt, dev, steps=5, chi=4):
+    """(b): examples/ising_2d_heisenberg.py at its defaults (4x4, χ=4, 5
+    steps, Pauli basis, complex64): per step the Frobenius norm of O(t),
+    Tr O(t) and Tr O(t)O(0)."""
+    g = tt.named_grid((4, 4))
+    vz = g.center()[0]
+    psi0 = tt.paulitensornetworkstate(
+        torch.complex64, lambda v: "Z" if v == vz else "I", g, device=dev)
+    h, J, dt = -1.0, -1.0, 0.04
+    layer = [("Rz", [v], h * dt) for v in g.vertices()]
+    for colored_edges in tt.edge_color(g, 4):
+        layer += [("Rxx", pair, 2 * J * dt) for pair in colored_edges]
+    layer += [("Rz", [v], h * dt) for v in g.vertices()]
+    layer = list(reversed(layer))
+    ident = tt.identitytensornetworkstate(g, psi0.siteinds(), device=dev)
+    cache = tt.BeliefPropagationCache(psi0.copy()).update()
+    rows = []
+    for _ in range(steps):
+        cache, _ = tt.apply_gates(layer, cache, apply_kwargs=dict(
+            maxdim=chi, cutoff=1e-12, normalize_tensors=False))
+        cache = cache.rescale()
+        psi = cache.network()
+        rows.append([cache.partitionfunction(),
+                     tt.inner(psi, ident, alg="bp"),
+                     tt.inner(psi, psi0, alg="bp")])
+    return np.array(rows, dtype=np.complex128)
+
+
+def thermal_example(tt, dev, steps=8, chi=8, dtau=0.05, h=1.0, J=1.0):
+    """(c): examples/thermal_states.py (4x4, χ=8, d=4, float64) for 8 Strang
+    steps: per step E/site, ⟨X⟩, S2/site and the largest bond."""
+    X = np.array([[0.0, 1.0], [1.0, 0.0]])
+    Z = np.diag([1.0, -1.0])
+    g = tt.named_grid((4, 4))
+    verts = list(g.vertices())
+    half = [("map", [v], tt.imaginary_time_kraus(-h * X, dtau / 2))
+            for v in verts]
+    layer = list(half)
+    for group in tt.edge_color(g, 4):
+        layer += [("map", pair, tt.imaginary_time_kraus(-J * np.kron(Z, Z),
+                                                        dtau))
+                  for pair in group]
+    layer += half
+    rho = tt.density_matrix_tensornetworkstate(torch.float64,
+                                               lambda v: "mixed", g,
+                                               device=dev)
+    obs_x = [("X", [v]) for v in verts]
+    obs_zz = [("ZZ", [e.src, e.dst]) for e in g.edges()]
+    rows = []
+    for _ in range(steps):
+        rho, _ = tt.apply_circuit(layer, rho, apply_kwargs=dict(
+            maxdim=chi, cutoff=1e-12, normalize_tensors=True))
+        xs = np.real(tt.pauli_expectation(rho, obs_x, alg="bp"))
+        zzs = np.real(tt.pauli_expectation(rho, obs_zz, alg="bp"))
+        rows.append([(-J * np.sum(zzs) - h * np.sum(xs)) / len(verts),
+                     np.mean(xs),
+                     -np.log2(tt.purity(rho, alg="bp")) / len(verts),
+                     rho.maxvirtualdim()])
+    return np.array(rows)
+
+
+def generic_phase(tt, dev, engine, counters, card):
+    """The generic engine on the card, (a)-(d); returns (launches of the
+    counted (a) run, {name: (call, ms)} for the busy share)."""
+    from tensornetworkquantumsimulator_torch import native
+    from tensornetworkquantumsimulator_torch import parallel as tp
+    from tensornetworkquantumsimulator_torch.engines import beliefpropagation
+    from tensornetworkquantumsimulator_torch.parallel import trotter
+
+    libs = {stem: get() for stem, get in (("pathopt", native.get_pathopt),
+                                          ("subgraphs", native.get_subgraphs))}
+    assert all(lib is not None for lib in libs.values()), (
+        f"generic: a native library failed to build or load: {libs}")
+    log("generic", "native libraries loaded: " + ", ".join(
+        str(native.library_path(stem).relative_to(REPO)) for stem in libs))
+
+    # (a) counted: no kernel of the batched engine may launch
+    t0 = time.perf_counter()
+    with generic_sweeps(beliefpropagation) as g_sweeps:
+        launches, (g, layer, psi0, psi, z_g) = counted(
+            counters, "generic", (),
+            lambda: generic_tfim(tt, dev, GENERIC_LAYERS))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    assert not any(launches.values()), f"generic: kernels launched {launches}"
+    assert psi.device().type == "cuda", psi.device()
+    spec, state = tp.batched_from_tns(psi0, chi=10, device=dev)
+    layer_fn = tp.make_layer_fn(tp.BatchedCircuit(layer, g, spec=spec),
+                                chi=10, cutoff=1e-10, normalize_tensors=True,
+                                bp_maxiter=25, device=dev)
+    with batched_sweeps(engine, trotter) as b_sweeps:
+        for _ in range(GENERIC_LAYERS):
+            state, _ = layer_fn(state)
+    pos = [spec.vertex_position(v) for v in g.vertices()]
+    z_b = tp.local_expectations(spec, state, tt.op_matrix("Z", 2)).real
+    z_b = z_b.cpu().numpy()[pos]
+    dz = float(np.abs(z_g - z_b).max())
+    assert dz <= 1e-4, f"generic: <Z> generic vs batched {dz:.3e} > 1e-4"
+    log("generic", f"(a) 5x5 TFIM chi=10 c64, {GENERIC_LAYERS} layers of "
+                   f"apply_circuit: launches {launches}; BP <Z> on 25 sites, "
+                   f"mean {z_g.mean():.6f}, vs the batched layer from "
+                   f"batched_from_tns: max |dZ| {dz:.2e} (bar 1e-4); max "
+                   f"bond {psi.maxvirtualdim()}")
+    log("generic", f"(a) BP sweeps per update, generic (sequential, "
+                   f"{len(g_sweeps)} updates): {g_sweeps}; batched "
+                   f"(flooding, {len(b_sweeps)} refreshes): {b_sweeps}")
+    psi_b = tp.batched_to_tns(spec, state, g, psi0.siteinds())
+    cache = tp.batched_messages_to_cache(spec, state, psi_b)
+    z_c = np.real(np.array(tt.expect(cache, [("Z", [v])
+                                             for v in g.vertices()])))
+    dzc = float(np.abs(z_c - z_b).max())
+    assert dzc <= 1e-5, f"generic: bridged <Z> vs local_expectations {dzc:.3e}"
+    log("generic", f"(a) batched_to_tns + batched_messages_to_cache read by "
+                   f"expect vs local_expectations: max |dZ| {dzc:.2e} "
+                   f"(bar 1e-5)")
+
+    # (d) one more layer, timed, then one with its host syncs counted
+    def one_layer():
+        return tt.apply_circuit(layer, psi, apply_kwargs=GENERIC_APPLY)
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    one_layer()
+    end.record()
+    end.synchronize()
+    layer_ms, layer_host_ms = start.elapsed_time(end), (
+        time.perf_counter() - t0) * 1e3
+    _, syncs = count_syncs(one_layer)
+    two_site = sum(gate[0] == "Rzz" for gate in layer)
+
+    # (a)-(c) again on the CPU, in this process
+    t0 = time.perf_counter()
+    _, _, _, psi_cpu, z_cpu = generic_tfim(tt, "cpu", GENERIC_LAYERS)
+    t_cpu = time.perf_counter() - t0
+    dz_cpu = float(np.abs(z_g - z_cpu).max())
+    assert dz_cpu <= 1e-4, f"generic: (a) card vs CPU {dz_cpu:.3e} > 1e-4"
+    t0 = time.perf_counter()
+    one_cpu = tt.apply_circuit(layer, psi_cpu, apply_kwargs=GENERIC_APPLY)
+    cpu_layer_ms = (time.perf_counter() - t0) * 1e3
+    del one_cpu
+    log("generic", f"(a) card vs CPU: max |dZ| {dz_cpu:.2e} (bar 1e-4)")
+    log("generic", f"(d) {card}: one chi10 layer ({len(layer)} gates, "
+                   f"{two_site} two-site) {layer_ms:.1f} ms between CUDA "
+                   f"events ({layer_host_ms:.1f} ms host clock) on the card, "
+                   f"{cpu_layer_ms:.1f} ms on the CPU ({torch.get_num_threads()} "
+                   f"threads); host syncs per layer {syncs} (CUDA sync debug "
+                   f"mode); (a) in all {t_card:.1f} s on the card, "
+                   f"{t_cpu:.1f} s on the CPU (host clock)")
+
+    t0 = time.perf_counter()
+    heis = heisenberg_example(tt, dev)
+    t_heis = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    heis_cpu = heisenberg_example(tt, "cpu")
+    t_heis_cpu = time.perf_counter() - t0
+    r_heis = rel_err(heis, heis_cpu)
+    assert r_heis <= 1e-5, f"generic: (b) card vs CPU {r_heis:.3e} > 1e-5"
+    for k, (nrm, tr, tr0) in enumerate(heis):
+        log("generic", f"(b) ising_2d_heisenberg step {k + 1}: Frobenius norm "
+                       f"{nrm.real:.6f}, |Tr O(t)| {abs(tr):.3e}, Tr O(t)O(0) "
+                       f"{tr0.real:.6f}")
+    log("generic", f"(b) card vs CPU: {r_heis:.2e} relative to the largest "
+                   f"value (bar 1e-5); {t_heis:.1f} s on the card, "
+                   f"{t_heis_cpu:.1f} s on the CPU")
+
+    # (c): once the χ=8 cap truncates, the run amplifies rounding step by
+    # step (the kept subspace of a near-degenerate spectrum is
+    # ill-conditioned), so 1e-5 holds only for the steps before the cap
+    # binds; a second CPU run on one thread shows the CPU's own spread
+    t0 = time.perf_counter()
+    therm = thermal_example(tt, dev)
+    t_therm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    therm_cpu = thermal_example(tt, "cpu")
+    t_therm_cpu = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        therm_cpu1 = thermal_example(tt, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert np.isfinite(therm).all(), "generic: (c) non-finite"
+    scale = np.abs(therm_cpu[:, :3]).max(axis=0)
+    card_vs_cpu = (np.abs(therm[:, :3] - therm_cpu[:, :3]) / scale).max(axis=1)
+    cpu_vs_cpu = (np.abs(therm_cpu1[:, :3] - therm_cpu[:, :3]) / scale).max(
+        axis=1)
+    at_cap = therm_cpu[:, 3] >= 8
+    capped = int(np.argmax(at_cap)) if at_cap.any() else len(at_cap)
+    assert (card_vs_cpu[:capped] <= 1e-5).all(), (
+        f"generic: (c) card vs CPU before the cap {card_vs_cpu[:capped]}")
+    assert (card_vs_cpu <= 1e-2).all(), f"generic: (c) card vs CPU {card_vs_cpu}"
+    for k, (en, x, s2, bond) in enumerate(therm):
+        log("generic", f"(c) thermal_states beta {0.1 * (k + 1):.1f}: "
+                       f"E/site {en:+.6f}, <X> {x:+.6f}, S2/site {s2:.6f}, "
+                       f"max bond {int(bond)}; card vs CPU {card_vs_cpu[k]:.2e}, "
+                       f"CPU {threads} threads vs 1 {cpu_vs_cpu[k]:.2e}")
+    log("generic", f"(c) card vs CPU relative per column: steps 1-{capped} "
+                   f"(bond below the cap) within 1e-5, all within 1e-2; "
+                   f"{t_therm:.1f} s on the card, {t_therm_cpu:.1f} s on the "
+                   f"CPU")
+    return launches, {"generic chi10 layer": (one_layer, layer_ms)}
+
+
+def busy_shares(profiled: dict, card, phase: str = "measure") -> None:
     """The device's busy share of each call in ``profiled`` (name → (call,
     its milliseconds without the profiler)): the device time of every
     kernel and copy ``torch.profiler`` traced, over the call's time
@@ -1842,7 +2156,7 @@ def busy_shares(profiled: dict, card) -> None:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
         share = (f"{100 * busy_ms / plain_ms:.1f}%" if busy_ms > 0
                  else "not measured")
-        log("measure", f"{card}: {name}: device busy {share} ({busy_ms:.1f} "
+        log(phase, f"{card}: {name}: device busy {share} ({busy_ms:.1f} "
                        f"ms in {ops} device operations, over {plain_ms:.1f} "
                        f"ms per call without the profiler; {traced_ms:.1f} ms "
                        f"under it); most device time: "
@@ -1893,7 +2207,7 @@ def colour_groups(tt) -> None:
 # layers each counted main path runs (the ensemble's of 8 members; the
 # measure path is one call of ``batched_truncate``)
 LAYERS = {"chi10": 5, "chi64": 2, "rolled": 10, "ensemble": ENSEMBLE_LAYERS,
-          "noisy": NOISY_LAYERS, "measure": 1}
+          "noisy": NOISY_LAYERS, "measure": 1, "generic": GENERIC_LAYERS}
 TIMES_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
               "unit", "fp32_bound_ms", "flops", "bytes", "library_ms",
               "library_device_ms", "host_us", "library_host_us",
@@ -2043,9 +2357,14 @@ def main() -> int:
     paths.update(more_paths)
     profiled.update(more)
     done("variational")
+
+    # 14. the generic named-index engine
+    paths["generic"], generic_profiled = generic_phase(tt, dev, engine,
+                                                       counters, card)
+    done("generic")
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
 
-    # 14. times
+    # 15. times
     for name, n, on in (("chi10", 20, FAST_STACK),
                         ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1")),
                         ("chi10_rolled", 20, FAST_STACK)):
@@ -2152,6 +2471,7 @@ def main() -> int:
                          f"{e['bytes']:.3g} B){fp32}{extra}")
     done("times")
     busy_shares(profiled, card)
+    busy_shares(generic_profiled, card, "generic")
     done("busy")
 
     meta = {

@@ -1,9 +1,9 @@
 """Quantum noise channels as Pauli-transfer matrices.
 
-A jax-free copy of ``tensornetworkquantumsimulator_tpu.models.channels``
-without ``channel_tensor`` (which builds a tensor of the generic engine):
-the Kraus builders, ``kraus_to_ptm``, ``is_channel``, ``channel_kraus``
-and ``channel_ptm``.  A CPTP map Φ(ρ) = Σ_k K_k ρ K_k† becomes a transfer
+A jax-free copy of ``tensornetworkquantumsimulator_tpu.models.channels``:
+the Kraus builders, ``kraus_to_ptm``, ``is_channel``, ``channel_kraus``,
+``channel_ptm`` and ``channel_tensor``, which puts a channel on a device
+as a tensor of the generic engine.  A CPTP map Φ(ρ) = Σ_k K_k ρ K_k† becomes a transfer
 matrix in the {I,X,Y,Z}^⊗n product basis, applied to d=4 Pauli sites
 exactly like a PTM gate.  Two pictures:
 
@@ -40,6 +40,7 @@ __all__ = [
     "is_channel",
     "channel_kraus",
     "channel_ptm",
+    "channel_tensor",
 ]
 
 
@@ -291,3 +292,20 @@ def channel_ptm(name: str, param, nsites: int = 1, heisenberg: bool = True) -> n
     if _parse(name)[0] in ("kraus", "map"):
         return kraus_to_ptm(channel_kraus(name, param, nsites), heisenberg)
     return np.array(_channel_ptm_cached(name, _param_key(param), nsites, heisenberg))
+
+
+def channel_tensor(name: str, param, site_inds, heisenberg: bool = True,
+                   device=None):
+    """Channel transfer tensor on Pauli-4 sites, shaped like a PTM gate
+    (`models/gates.py::heisenberg_gate_tensor`), on ``device`` (None: the
+    package default)."""
+    from .gates import _ptm_tensor
+
+    n = len(site_inds)
+    if any(s.dim != 4 for s in site_inds):
+        raise ValueError("channels act on 4-dimensional Pauli sites")
+    m = channel_ptm(name, param, nsites=n, heisenberg=heisenberg)
+    key = None
+    if _parse(name)[0] not in ("kraus", "map"):
+        key = ("channel", name, _param_key(param), n, heisenberg)
+    return _ptm_tensor(m, key, site_inds, device)

@@ -1,13 +1,21 @@
-"""Local states and operators of the batched-engine slice.
+"""Site-index systems and the local operator/state registry.
 
-A jax-free copy of ``state_vector``, ``pauli_coefficients``, ``op_matrix``
-and the Pauli constants from ``tensornetworkquantumsimulator_tpu.models.sites`` (the ITensors op /
-state registry the reference leans on).
+A jax-free copy of ``tensornetworkquantumsimulator_tpu.models.sites``: the
+counterpart of the reference's `src/siteinds.jl` plus the pieces of
+ITensors' op/state system it leans on (`ITensors.op`, `ITensors.state`;
+`tensornetworkstate.jl:53`, `tensornetworkstate_constructors.jl`).
+Supported site types: qubit/S=1/2 (d=2), qutrit/S=1 (d=3), and the
+4-dimensional "Pauli" and "PauliRho" sites of the Heisenberg and
+density-matrix pictures.  The registry is numpy; :func:`op_tensor` puts an
+operator on a device as a named-index tensor.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..devices import resolve_device
+from ..ops.index import Index
 
 _SQ2 = 1 / np.sqrt(2.0)
 
@@ -32,6 +40,43 @@ _STATES_2 = {
     "y-": [_SQ2, -1j * _SQ2],
     "-i": [_SQ2, -1j * _SQ2],
 }
+
+def site_dimension(sitetype: str) -> int:
+    st = sitetype.lower().replace(" ", "")
+    if st in ("s=1/2", "qubit", "spin1/2", "spinhalf"):
+        return 2
+    if st in ("qutrit", "s=1", "spin1"):
+        return 3
+    if st == "pauli":
+        return 4
+    if st in ("paulirho", "rho", "densitymatrix"):
+        return 4
+    raise ValueError(f"unknown site type {sitetype!r}")
+
+
+def site_tag(sitetype: str) -> str:
+    st = sitetype.lower().replace(" ", "")
+    if st in ("s=1/2", "qubit", "spin1/2", "spinhalf"):
+        return "S=1/2"
+    if st in ("qutrit", "s=1", "spin1"):
+        return "S=1"
+    if st == "pauli":
+        return "Pauli"
+    if st in ("paulirho", "rho", "densitymatrix"):
+        return "PauliRho"
+    raise ValueError(f"unknown site type {sitetype!r}")
+
+
+def siteinds(sitetype: str, g, dim: int | None = None) -> dict:
+    """Per-vertex site-index dictionary (`siteinds.jl:7-10`)."""
+    d = dim if dim is not None else site_dimension(sitetype)
+    tag = site_tag(sitetype)
+    return {v: [Index(d, tags=(tag, f"Site,{v}"))] for v in g.vertices()}
+
+
+def default_siteinds(g) -> dict:
+    return siteinds("S=1/2", g)
+
 
 # Heisenberg-picture Pauli sites: basis order [I, X, Y, Z]
 # (`tensornetworkstate_constructors.jl:1`)
@@ -143,3 +188,22 @@ def op_matrix(name: str, dim: int) -> np.ndarray:
     if table is None or name not in table:
         raise ValueError(f"unknown operator {name!r} for site dimension {dim}")
     return table[name]
+
+
+def op_tensor(name: str, site: Index, dtype=None, device=None):
+    """ITensors.op equivalent: matrix on (site', site), on ``device`` (None:
+    the package default), copied there once per (name, dtype, device).  A
+    complex operator asked for in a real dtype comes in the complex dtype of
+    that precision: the JAX package casts it to the real dtype, which drops
+    its imaginary part, so ⟨YY⟩ of a real state reads 0 there."""
+    from ..ops.tensor import Tensor, as_torch_dtype, complex_of, constant
+
+    mat = op_matrix(name, site.dim)
+    if dtype is None:
+        dtype = np.complex128 if np.iscomplexobj(mat) else np.float64
+    dtype = as_torch_dtype(dtype)
+    if np.iscomplexobj(mat):
+        dtype = complex_of(dtype)
+    data = constant(("op", name, site.dim), lambda: mat, dtype,
+                    resolve_device(device))
+    return Tensor(data, (site.prime(), site))

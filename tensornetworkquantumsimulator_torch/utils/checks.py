@@ -2,8 +2,8 @@
 (`src/utils.jl:38-67, 93-124`).
 
 A jax-free copy of ``tensornetworkquantumsimulator_tpu.utils.checks``.  The
-port has no generic-engine caches yet, so :func:`default_alg` finds no
-cache type to name and returns None."""
+generic engine's boundary-MPS cache is not ported yet, so
+:func:`default_alg` names "bp" for a BP cache and None otherwise."""
 
 from __future__ import annotations
 
@@ -66,18 +66,8 @@ def algorithm_check(tns, f: str, alg) -> None:
 
 
 def default_alg(x):
-    try:
-        from ..engines.beliefpropagation import BeliefPropagationCache
+    from ..engines.beliefpropagation import BeliefPropagationCache
 
-        if isinstance(x, BeliefPropagationCache):
-            return "bp"
-    except ImportError:
-        pass
-    try:
-        from ..engines.boundarymps import BoundaryMPSCache
-
-        if isinstance(x, BoundaryMPSCache):
-            return "boundarymps"
-    except ImportError:
-        pass
+    if isinstance(x, BeliefPropagationCache):
+        return "bp"
     return None

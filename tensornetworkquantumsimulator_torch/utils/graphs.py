@@ -1,13 +1,16 @@
-"""Named graphs and the proper edge colouring the batched engine needs.
+"""Named graphs and the graph algorithms the contraction engines need.
 
-A jax-free copy of the slice of ``tensornetworkquantumsimulator_tpu.utils.
-graphs`` that the port uses: :class:`NamedEdge`, :class:`NamedGraph` and
-:func:`edge_color` with its colouring helpers for the Trotter-layer path, and
-the loop enumeration of the loop-correction series
-(:func:`edgeinduced_subgraphs_no_leaves`,
-:func:`unique_simplecycles_limited_length`, :func:`cycle_to_path`).  The
-colourings are the reference's own algorithms, so the port compiles the
-same slot tables and colour groups as the JAX package.
+A jax-free copy of ``tensornetworkquantumsimulator_tpu.utils.graphs``: the
+Python/networkx counterpart of the reference's NamedGraphs.jl layer
+(`src/imports.jl:6-45`).  Vertices are arbitrary hashables (usually
+coordinate tuples); message edges are directed :class:`NamedEdge` pairs.
+It holds the graph queries of the generic engine (trees, forest covers,
+Steiner trees, boundaries), its sequential BP schedule
+(:func:`forest_cover_edge_sequence`), the proper edge colouring of the
+batched engine and the loop enumeration of the loop-correction series.
+Every algorithm is the reference's own, so the port compiles the same slot
+tables and colour groups, and walks the same BP schedule, as the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,12 +20,16 @@ from typing import Hashable, Iterable
 
 import networkx as nx
 
+
 @dataclass(frozen=True)
 class NamedEdge:
     """A directed edge (messages live on directed edges)."""
 
     src: Hashable
     dst: Hashable
+
+    def reverse(self) -> "NamedEdge":
+        return NamedEdge(self.dst, self.src)
 
     def __repr__(self):
         return f"{self.src}=>{self.dst}"
@@ -31,10 +38,25 @@ class NamedEdge:
         return iter((self.src, self.dst))
 
 
+def reverse(e: NamedEdge) -> NamedEdge:
+    return e.reverse()
+
+
+def src(e: NamedEdge):
+    return e.src
+
+
+def dst(e: NamedEdge):
+    return e.dst
+
+
 class NamedGraph:
-    """Undirected graph with insertion-ordered vertices/edges (the subset of
-    the reference's NamedGraphs.jl surface that lattice construction and
-    edge colouring use)."""
+    """Undirected graph with insertion-ordered vertices/edges.
+
+    Mirrors the NamedGraphs.jl surface the reference uses: `vertices`,
+    `edges`, `neighbors`, `add_edge(!)`, `rem_vertex(!)`, `steiner_tree`,
+    `forest_cover`, `post_order_dfs_edges`, `a_star`, `center`, ...
+    """
 
     def __init__(self, vertices: Iterable = (), edges: Iterable = ()):
         self._g = nx.Graph()
@@ -43,6 +65,7 @@ class NamedGraph:
         for e in edges:
             self.add_edge_inplace(e)
 
+    # -- structure ----------------------------------------------------------
     @classmethod
     def _wrap(cls, g: nx.Graph) -> "NamedGraph":
         out = cls()
@@ -77,12 +100,27 @@ class NamedGraph:
     def neighbors(self, v) -> list:
         return list(self._g.neighbors(v))
 
+    def degree(self, v) -> int:
+        return self._g.degree(v)
+
     def max_degree(self) -> int:
         return max((d for _, d in self._g.degree), default=0)
+
+    def add_vertex(self, v) -> "NamedGraph":
+        g = self.copy()
+        g.add_vertex_inplace(v)
+        return g
 
     def add_vertex_inplace(self, v):
         self._g.add_node(v)
         return self
+
+    def add_edge(self, e, v=None) -> "NamedGraph":
+        if v is not None:
+            e = NamedEdge(e, v)
+        g = self.copy()
+        g.add_edge_inplace(e)
+        return g
 
     def add_edge_inplace(self, e, v=None):
         if v is not None:
@@ -91,13 +129,44 @@ class NamedGraph:
         self._g.add_edge(u, w)
         return self
 
+    def add_edges(self, es) -> "NamedGraph":
+        g = self.copy()
+        for e in es:
+            g.add_edge_inplace(e)
+        return g
+
+    def rem_edge(self, e) -> "NamedGraph":
+        g = self.copy()
+        g.rem_edge_inplace(e)
+        return g
+
     def rem_edge_inplace(self, e):
         u, v = (e.src, e.dst) if isinstance(e, NamedEdge) else e
         self._g.remove_edge(u, v)
         return self
 
+    def rem_edges_inplace(self, es):
+        for e in es:
+            self.rem_edge_inplace(e)
+        return self
+
+    def rem_vertex(self, v) -> "NamedGraph":
+        g = self.copy()
+        g.rem_vertex_inplace(v)
+        return g
+
+    def rem_vertex_inplace(self, v):
+        self._g.remove_node(v)
+        return self
+
     def rename_vertices(self, f) -> "NamedGraph":
         return NamedGraph._wrap(nx.relabel_nodes(self._g, {v: f(v) for v in self._g}))
+
+    def subgraph(self, vs) -> "NamedGraph":
+        return NamedGraph._wrap(self._g.subgraph(vs).copy())
+
+    def incident_edges(self, v) -> list:
+        return [NamedEdge(v, w) for w in self._g.neighbors(v)]
 
     def __eq__(self, other):
         if not isinstance(other, NamedGraph):
@@ -109,10 +178,116 @@ class NamedGraph:
     def __repr__(self):
         return f"NamedGraph({self.nv()} vertices, {self.ne()} edges)"
 
+    # -- queries -------------------------------------------------------------
+    def is_connected(self) -> bool:
+        return self.nv() > 0 and nx.is_connected(self._g)
+
+    def is_tree(self) -> bool:
+        return self.nv() > 0 and nx.is_tree(self._g)
+
+    def connected_components(self) -> list:
+        return [list(c) for c in nx.connected_components(self._g)]
+
+    def center(self) -> list:
+        return sorted(nx.center(self._g))
+
+    def leaf_vertices(self) -> list:
+        return [v for v in self._g.nodes if self._g.degree(v) == 1]
+
+    def is_line_graph(self) -> bool:
+        """A path: a tree whose degrees are [1, 1, 2, 2, ...] (`utils.jl:2-10`)."""
+        if self.nv() == 1:
+            return True
+        if not self.is_tree():
+            return False
+        ds = sorted(d for _, d in self._g.degree)
+        return ds == [1, 1] + [2] * (self.nv() - 2)
+
+    def is_ring_graph(self) -> bool:
+        if self.ne() == 0:
+            return False
+        g = self.rem_edge(self.edges()[0])
+        return g.is_line_graph()
+
+    # -- paths and trees -----------------------------------------------------
+    def a_star(self, v1, v2) -> list:
+        """Shortest path from v1 to v2 as a list of directed edges."""
+        path = nx.shortest_path(self._g, v1, v2)
+        return [NamedEdge(a, b) for a, b in zip(path, path[1:])]
+
+    def steiner_tree(self, terminal_vs) -> "NamedGraph":
+        t = nx.algorithms.approximation.steiner_tree(self._g, list(terminal_vs))
+        if t.number_of_nodes() == 0:  # single terminal
+            t = self._g.subgraph(list(terminal_vs)).copy()
+        return NamedGraph._wrap(nx.Graph(t))
+
+    def post_order_dfs_edges(self, root) -> list:
+        """Edges of a tree directed child→parent, leaves first
+        (NamedGraphs `post_order_dfs_edges`)."""
+        order = list(nx.dfs_postorder_nodes(self._g, root))
+        parent = {root: None}
+        for u, v in nx.dfs_edges(self._g, root):
+            parent[v] = u
+        return [NamedEdge(v, parent[v]) for v in order if parent.get(v) is not None]
+
+    def forest_cover(self) -> list:
+        """Partition the edges into spanning forests (NamedGraphs
+        `forest_cover`): greedily peel maximal forests until all edges used."""
+        remaining = set(frozenset((u, v)) for u, v in self._g.edges)
+        forests = []
+        while remaining:
+            uf = nx.utils.UnionFind(self._g.nodes)
+            forest_edges = []
+            for e in list(self.edges()):
+                key = frozenset((e.src, e.dst))
+                if key in remaining and uf[e.src] != uf[e.dst]:
+                    uf.union(e.src, e.dst)
+                    forest_edges.append(e)
+                    remaining.discard(key)
+            f = NamedGraph(self.vertices())
+            for e in forest_edges:
+                f.add_edge_inplace(e)
+            forests.append(f)
+        return forests
+
+    def boundary_edges(self, vs, dir: str = "in") -> list:
+        """Edges crossing the boundary of vertex set ``vs``; ``dir="in"``
+        orients them pointing into the set (NamedGraphs `boundary_edges`)."""
+        vset = set(vs)
+        out = []
+        for v in vs:
+            for w in self._g.neighbors(v):
+                if w not in vset:
+                    out.append(NamedEdge(w, v) if dir == "in" else NamedEdge(v, w))
+        return out
+
 
 # ---------------------------------------------------------------------------
-# edge colouring
+# schedules / colorings
 # ---------------------------------------------------------------------------
+
+
+def forest_cover_edge_sequence(g: NamedGraph, root_vertex=None) -> list:
+    """The reference's default sequential BP schedule
+    (`beliefpropagationcache.jl:74-85`): per forest, per tree, post-order DFS
+    edges toward the root then the same edges reversed — tree-exact in one
+    sweep."""
+    edges = []
+    for forest in g.forest_cover():
+        for comp in forest.connected_components():
+            tree = forest.subgraph(comp)
+            if tree.ne() == 0:
+                continue
+            root = root_vertex if root_vertex in comp else _default_root(tree)
+            tree_edges = tree.post_order_dfs_edges(root)
+            edges.extend(tree_edges)
+            edges.extend(e.reverse() for e in reversed(tree_edges))
+    return edges
+
+
+def _default_root(tree: NamedGraph):
+    leaves = tree.leaf_vertices()
+    return leaves[-1] if leaves else tree.vertices()[0]
 
 
 def edge_color(g: NamedGraph, num_colors: int | None = None) -> list:

@@ -1,0 +1,251 @@
+"""PyTorch port, the generic engine's gate application (``apply.py``)
+against the JAX package: one simple update, circuits through
+``apply_gates`` on a state and on a BP cache (per-gate truncation errors and
+BP ⟨Z⟩), the full update, channels and ``"map"`` gates on density-matrix
+states; and the cross-engine check of ``tests/test_batched.py:61-98``
+inside the port, generic engine against batched engine through the
+bridges.
+
+Random states are made by the JAX package and carried across as plain
+data.  Factor gauges differ between libraries, so a two-site update is
+compared through the product of its two tensors, which carries none."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tensornetworkquantumsimulator_torch as tt
+import tensornetworkquantumsimulator_tpu as tnqs
+from tensornetworkquantumsimulator_torch import apply as t_apply
+from tensornetworkquantumsimulator_torch import parallel as tp
+from tensornetworkquantumsimulator_torch import set_default_device
+from tensornetworkquantumsimulator_torch.models import state_from_numpy
+from tensornetworkquantumsimulator_torch.models import gates as t_gates
+from tensornetworkquantumsimulator_tpu import apply as j_apply
+from tensornetworkquantumsimulator_tpu.models import gates as j_gates
+from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port's entry points default to CUDA: these tests ask for the CPU."""
+    prev = set_default_device("cpu")
+    yield
+    set_default_device(prev)
+
+
+def _plain(j):
+    """A JAX network as the port's plain form (``state_to_numpy``)."""
+    def ind(i):
+        return (i.id, i.dim, tuple(i.tags), i.plev)
+
+    out = {"vertices": list(j.vertices()),
+           "edges": [(e.src, e.dst) for e in j.edges()],
+           "tensors": {v: (np.asarray(j[v].data), [ind(i) for i in j[v].inds])
+                       for v in j.vertices()}}
+    if type(j).__name__ == "TensorNetworkState":
+        out["siteinds"] = {v: [ind(i) for i in s]
+                           for v, s in j.siteinds().items()}
+    return out
+
+
+def _aligned(t, inds_j):
+    """A port tensor's data in the index order of JAX indices."""
+    pos = {(i.id, i.plev): k for k, i in enumerate(t.inds)}
+    return np.transpose(t.numpy(), [pos[(i.id, i.plev)] for i in inds_j])
+
+
+def _tfim_layer(graphs_mod, g, dt=0.25, hx=1.0, hz=0.8, J=0.5):
+    layer = [("Rx", [v], 2 * hx * dt) for v in g.vertices()]
+    layer += [("Rz", [v], 2 * hz * dt) for v in g.vertices()]
+    for ce in graphs_mod.edge_color(g, 4):
+        layer += [("Rzz", [pair.src, pair.dst], 2 * J * dt) for pair in ce]
+    return layer
+
+
+def _z_bp(expect, psi, vs, **kw):
+    return np.real([expect(psi, ("Z", [v]), alg="bp", **kw) for v in vs])
+
+
+def test_simple_update_matches_jax():
+    """One Rzz under the BP environments of a random 3×3 χ=3 state,
+    truncated to χ=2: truncation error, kept spectrum, and the two updated
+    tensors contracted over their new bond."""
+    g = j_lat.named_grid((3, 3))
+    psi_j = tnqs.random_tensornetworkstate(jnp.complex128, g, bond_dimension=3,
+                                           key=jax.random.PRNGKey(1))
+    psi_t = state_from_numpy(_plain(psi_j))
+    cj = tnqs.BeliefPropagationCache(psi_j).update(maxiter=50, tolerance=1e-13)
+    ct = tt.BeliefPropagationCache(psi_t).update(maxiter=50, tolerance=1e-13)
+    verts = [(2, 2), (2, 3)]
+    gate_j, _ = j_gates.to_tensor(("Rzz", verts, 0.7), psi_j.siteinds())
+    gate_t, _ = t_gates.to_tensor(("Rzz", verts, 0.7), psi_t.siteinds())
+    np.testing.assert_array_equal(gate_t.numpy(), np.asarray(gate_j.data))
+    (aj, bj), sj, ej = j_apply.simple_update(
+        gate_j, psi_j, verts, envs=cj.incoming_messages(verts), maxdim=2)
+    (at, bt), st, et = t_apply.simple_update(
+        gate_t, psi_t, verts, envs=ct.incoming_messages(verts), maxdim=2)
+    np.testing.assert_allclose(et, ej, rtol=1e-9)
+    np.testing.assert_allclose(np.diag(st.numpy()), np.diag(np.asarray(sj.data)),
+                               atol=1e-10)
+    pj = aj * bj
+    np.testing.assert_allclose(_aligned(at * bt, pj.inds), np.asarray(pj.data),
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype_j,tol", [(jnp.complex128, 1e-9),
+                                         (jnp.complex64, 1e-5)])
+def test_apply_gates_on_state_and_cache(dtype_j, tol):
+    """Two TFIM layers on a random 3×3 χ=2 state, χ=3 kept: per-gate
+    truncation errors and BP ⟨Z⟩ equal JAX's; on a cache the same."""
+    g = j_lat.named_grid((3, 3))
+    psi_j = tnqs.random_tensornetworkstate(dtype_j, g, bond_dimension=2,
+                                           key=jax.random.PRNGKey(4))
+    psi_t = state_from_numpy(_plain(psi_j))
+    from tensornetworkquantumsimulator_tpu.utils import graphs as j_graphs
+    layer = _tfim_layer(j_graphs, g)
+    kw = dict(apply_kwargs=dict(maxdim=3, cutoff=1e-12),
+              bp_update_kwargs=dict(maxiter=40, tolerance=1e-12))
+    vs = list(g.vertices())
+    for _ in range(2):
+        psi_j, errs_j = tnqs.apply_gates(layer, psi_j, **kw)
+        psi_t, errs_t = tt.apply_gates(layer, psi_t, **kw)
+        assert psi_t.scalartype() == (torch.complex128 if dtype_j ==
+                                      jnp.complex128 else torch.complex64)
+        # a truncation error is a discarded weight relative to the total
+        np.testing.assert_allclose(errs_t, errs_j, atol=tol)
+    bp = dict(cache_update_kwargs=dict(maxiter=60, tolerance=1e-13))
+    np.testing.assert_allclose(_z_bp(tt.expect, psi_t, vs, **bp),
+                               _z_bp(tnqs.expect, psi_j, vs, **bp),
+                               atol=tol * 10)
+    # on a cache: the cache comes back, its messages refreshed
+    cj = tnqs.BeliefPropagationCache(psi_j).update(maxiter=40, tolerance=1e-12)
+    ct = tt.BeliefPropagationCache(psi_t).update(maxiter=40, tolerance=1e-12)
+    cj, ej = tnqs.apply_gates(layer[:9], cj, **kw)
+    ct, et = tt.apply_gates(layer[:9], ct, **kw)
+    assert isinstance(ct, tt.BeliefPropagationCache)
+    np.testing.assert_allclose(et, ej, atol=tol)
+    np.testing.assert_allclose(
+        [np.real(tt.expect(ct, ("Z", [v]))) for v in vs],
+        [np.real(tnqs.expect(cj, ("Z", [v]))) for v in vs], atol=tol * 10)
+
+
+def test_adapt_gate_promotion():
+    i = tt.Index(2)
+    g = t_apply.Tensor(torch.eye(2, dtype=torch.complex128), (i.prime(), i))
+    r = t_apply.Tensor(torch.eye(2, dtype=torch.float64), (i.prime(), i))
+    assert t_apply.adapt_gate(g, torch.float64).dtype == torch.complex128
+    assert t_apply.adapt_gate(g, torch.float32).dtype == torch.complex64
+    assert t_apply.adapt_gate(g, torch.complex64).dtype == torch.complex64
+    assert t_apply.adapt_gate(r, torch.float32).dtype == torch.float32
+
+
+def test_cross_engine_generic_vs_batched():
+    """``tests/test_batched.py:61-98`` in the port: 3×3 TFIM, χ=4, two
+    layers, complex128; the generic engine's BP ⟨Z⟩ against the batched
+    engine started from the same state through ``batched_from_tns``, bar
+    5e-7; then ``batched_to_tns`` keeps the BP norm."""
+    g = tt.named_grid((3, 3))
+    chi = 4
+    psi0 = tt.tensornetworkstate(torch.complex128, lambda v: "↑", g, "S=1/2")
+    layer = _tfim_layer(tt, g)
+    psi = psi0
+    for _ in range(2):
+        psi, _ = tt.apply_circuit(
+            layer, psi,
+            apply_kwargs=dict(maxdim=chi, cutoff=1e-12, normalize_tensors=True),
+            bp_update_kwargs=dict(maxiter=60, tolerance=1e-12))
+    vs = list(g.vertices())
+    z_generic = _z_bp(tt.expect, psi, vs)
+
+    spec, state = tp.batched_from_tns(psi0, chi=chi)
+    assert state.tensors.dtype == torch.complex128
+    layer_fn = tp.make_layer_fn(
+        tp.BatchedCircuit(layer, g, spec=spec), chi=chi, cutoff=1e-12,
+        normalize_tensors=True, bp_maxiter=60, bp_tolerance=1e-12)
+    for _ in range(2):
+        state, _ = layer_fn(state)
+    z_batched = tp.local_expectations(spec, state, tt.op_matrix("Z", 2))
+    z_batched = z_batched.real.numpy()[[spec.vertex_position(v) for v in vs]]
+    np.testing.assert_allclose(z_batched, z_generic, atol=5e-7)
+
+    psi_b = tp.batched_to_tns(spec, state, g, psi0.siteinds())
+    np.testing.assert_allclose(tt.norm_sqr(psi_b, alg="bp"),
+                               tt.norm_sqr(psi, alg="bp"), rtol=1e-6)
+    # the batched messages wrapped in a cache give the batched ⟨Z⟩
+    cache = tp.batched_messages_to_cache(spec, state, psi_b)
+    np.testing.assert_allclose([np.real(tt.expect(cache, ("Z", [v])))
+                                for v in vs], z_batched, atol=1e-10)
+    # and a cache's messages packed back land in the same slots
+    _, st2 = tp.batched_from_tns(psi_b, chi=chi, messages=cache.messages())
+    np.testing.assert_allclose(st2.messages.numpy(), state.messages.numpy(),
+                               atol=1e-14)
+    np.testing.assert_allclose(st2.tensors.numpy(), state.tensors.numpy(),
+                               atol=1e-14)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_full_update_matches_jax(solver):
+    """2×2 random χ=2 state, an Rxx gate on one edge under its BP
+    environments, truncated to χ=2 by three ALS sweeps: the product of the
+    two updated tensors equals JAX's."""
+    g = j_lat.named_grid((2, 2))
+    psi_j = tnqs.random_tensornetworkstate(jnp.complex128, g, bond_dimension=2,
+                                           key=jax.random.PRNGKey(8))
+    psi_t = state_from_numpy(_plain(psi_j))
+    cj = tnqs.BeliefPropagationCache(psi_j).update(maxiter=50, tolerance=1e-13)
+    ct = tt.BeliefPropagationCache(psi_t).update(maxiter=50, tolerance=1e-13)
+    verts = [(1, 1), (1, 2)]
+    gj, _ = j_gates.to_tensor(("Rxx", verts, 0.9), psi_j.siteinds())
+    gt, _ = t_gates.to_tensor(("Rxx", verts, 0.9), psi_t.siteinds())
+    env_j = [m for m in cj.incoming_messages(verts)]
+    env_t = [m for m in ct.incoming_messages(verts)]
+    kw = dict(nfullupdatesweeps=3, maxdim=2, solver=solver)
+    aj, bj = j_apply.full_update(gj, psi_j, verts, env_j, **kw)
+    at, bt = t_apply.full_update(gt, psi_t, verts, env_t, **kw)
+    pj = aj * bj
+    ref = np.asarray(pj.data)
+    np.testing.assert_allclose(_aligned(at * bt, pj.inds), ref,
+                               atol=1e-8 * np.abs(ref).max())
+
+
+def test_channels_and_maps_on_density_matrix():
+    """A 2×3 density-matrix state (d=4): a Lindblad step (unitaries,
+    amplitude damping and dephasing channels) then an imaginary-time
+    ``"map"`` step; truncation errors and ⟨Z⟩, ⟨X⟩, purity against JAX."""
+    from tensornetworkquantumsimulator_tpu.utils import graphs as j_graphs
+
+    gj = j_lat.named_grid((2, 3))
+    rho_j = tnqs.density_matrix_tensornetworkstate(jnp.float64, lambda v: "+",
+                                                   gj)
+    rho_t = state_from_numpy(_plain(rho_j))
+    X = np.array([[0.0, 1.0], [1.0, 0.0]])
+    Z = np.diag([1.0, -1.0])
+    dt = 0.1
+    lind = [("Rx", [v], 0.4) for v in gj.vertices()]
+    for grp in j_graphs.edge_color(gj, 4):
+        lind += [("Rzz", [p.src, p.dst], 0.3) for p in grp]
+    lind += [("amplitude_damping", [v], 0.05) for v in gj.vertices()]
+    lind += [("dephasing", [v], 0.02) for v in gj.vertices()]
+    maps = [("map", [v], tnqs.imaginary_time_kraus(-X, dt))
+            for v in gj.vertices()]
+    maps += [("map", [e.src, e.dst], tnqs.imaginary_time_kraus(
+        -np.kron(Z, Z), dt)) for e in gj.edges()]
+    kw = dict(apply_kwargs=dict(maxdim=4, cutoff=1e-12,
+                                normalize_tensors=False))
+    for circ in (lind, maps):
+        rho_j, ej = tnqs.apply_circuit(circ, rho_j, **kw)
+        rho_t, et = tt.apply_circuit(circ, rho_t, **kw)
+        np.testing.assert_allclose(et, ej, atol=1e-10)
+    obs = [("Z", [v]) for v in gj.vertices()] + [("X", [(1, 2)]),
+                                                ("ZZ", [(1, 1), (1, 2)])]
+    for alg in ("bp", "exact"):
+        np.testing.assert_allclose(
+            np.real(tt.pauli_expectation(rho_t, obs, alg=alg)),
+            np.real(tnqs.pauli_expectation(rho_j, obs, alg=alg)), atol=1e-10)
+        np.testing.assert_allclose(tt.purity(rho_t, alg=alg),
+                                   tnqs.purity(rho_j, alg=alg), rtol=1e-9)

@@ -140,3 +140,144 @@ def test_torch_example_excited_states():
     assert levels[0] < e0 and levels[0] < e1  # variational bounds
     np.testing.assert_allclose([e0, e1], [e0_ref, e1_ref], rtol=1e-4)
     np.testing.assert_allclose(pen, pen_ref, rtol=1e-2, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# examples of the generic engine
+# ---------------------------------------------------------------------------
+
+
+def _numbers(pattern, out):
+    return [complex(m) for m in re.findall(pattern, out)]
+
+
+def test_torch_example_ising_2d_heisenberg(capsys):
+    """examples/ising_2d_heisenberg.py (4×4, χ=4, complex64, Pauli basis)
+    for 2 of its 5 Trotter steps: per step the Frobenius norm, both traces
+    and the largest gate error."""
+    steps, chi = 2, 4
+    _example("ising_2d_heisenberg").main(no_trotter_steps=steps, chi=chi)
+    out = capsys.readouterr().out
+    norm_ref = _numbers(r"Frobenius norm of O\(t\): (\S+)", out)
+    tr_ref = _numbers(r"Trace\(O\(t\)\):\s+(\S+)", out)
+    tr0_ref = _numbers(r"Trace\(O\(t\)O\(0\)\):\s+(\S+)", out)
+    err_ref = _numbers(r"Max gate error:\s+(\S+)", out)
+
+    g = tt.named_grid((4, 4))
+    vz = g.center()[0]
+    psi0 = tt.paulitensornetworkstate(
+        torch.complex64, lambda v: "Z" if v == vz else "I", g)
+    h, J, dt = -1.0, -1.0, 0.04
+    layer = [("Rz", [v], h * dt) for v in g.vertices()]
+    for colored_edges in tt.edge_color(g, 4):
+        layer += [("Rxx", pair, 2 * J * dt) for pair in colored_edges]
+    layer += [("Rz", [v], h * dt) for v in g.vertices()]
+    layer = list(reversed(layer))
+    psi_bpc = tt.BeliefPropagationCache(psi0.copy()).update()
+    norms, trs, tr0s, errs = [], [], [], []
+    for _ in range(steps):
+        psi_bpc, e = tt.apply_gates(
+            layer, psi_bpc,
+            apply_kwargs=dict(maxdim=chi, cutoff=1e-12,
+                              normalize_tensors=False))
+        psi_bpc = psi_bpc.rescale()
+        norms.append(psi_bpc.partitionfunction())
+        psi = psi_bpc.network()
+        trs.append(tt.inner(psi, tt.identitytensornetworkstate(
+            g, psi.siteinds()), alg="bp"))
+        tr0s.append(tt.inner(psi, psi0, alg="bp"))
+        errs.append(np.max(e))
+    assert len(norm_ref) == steps
+    np.testing.assert_allclose(norms, norm_ref, atol=2e-6)  # printed .6f
+    np.testing.assert_allclose(trs, tr_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tr0s, tr0_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(errs, err_ref, rtol=1e-2, atol=1e-9)
+
+
+def _table(out, ncols):
+    rows = []
+    for line in out.splitlines():
+        parts = line.split()
+        try:
+            rows.append([float(p) for p in parts])
+        except ValueError:
+            continue
+    return np.array([r for r in rows if len(r) == ncols])
+
+
+def _lindblad_layer(g, dt, h=1.0, J=1.0, gamma=0.15, kappa=0.05):
+    layer = [("Rx", [v], 2 * h * dt) for v in g.vertices()]
+    for group in tt.edge_color(g, 4):
+        layer += [("Rzz", pair, 2 * J * dt) for pair in group]
+    layer += [("amplitude_damping", [v], 1 - np.exp(-gamma * dt))
+              for v in g.vertices()]
+    layer += [("dephasing", [v], (1 - np.exp(-2 * kappa * dt)) / 2)
+              for v in g.vertices()]
+    return layer
+
+
+def test_torch_example_lindblad_dynamics(capsys):
+    """examples/lindblad_dynamics.py (4×4, χ=8, float64, d=4 channels) for
+    3 of its 20 steps: ⟨Z⟩ mean, purity and truncation error per step."""
+    dt, steps, chi = 0.05, 3, 8
+    _example("lindblad_dynamics").main(t_final=steps * dt, dt=dt, chi=chi)
+    ref = _table(capsys.readouterr().out, 4)
+
+    g = tt.named_grid((4, 4))
+    layer = _lindblad_layer(g, dt)
+    rho = tt.density_matrix_tensornetworkstate(torch.float64, lambda v: "0", g)
+    obs = [("Z", [v]) for v in g.vertices()]
+    rows = []
+    for s in range(steps):
+        rho, errs = tt.apply_circuit(
+            layer, rho, apply_kwargs=dict(maxdim=chi, cutoff=1e-12,
+                                          normalize_tensors=False))
+        z = np.real(tt.pauli_expectation(rho, obs, alg="bp"))
+        rows.append([(s + 1) * dt, np.mean(z), tt.purity(rho, alg="bp"),
+                     max(float(e) for e in errs)])
+    rows = np.array(rows)
+    assert ref.shape == rows.shape == (steps, 4)
+    np.testing.assert_allclose(rows[:, :3], ref[:, :3], atol=2e-6)
+    np.testing.assert_allclose(rows[:, 3], ref[:, 3], rtol=1e-2, atol=1e-12)
+
+
+def test_torch_example_thermal_states(capsys):
+    """examples/thermal_states.py (4×4, χ=8, float64, imaginary-time
+    ``"map"`` gates) for 2 of its 16 Strang steps: E/site, ⟨X⟩, S2/site and
+    truncation error per step."""
+    dtau, steps, chi, h, J = 0.05, 2, 8, 1.0, 1.0
+    _example("thermal_states").main(beta_max=2 * dtau * steps, dtau=dtau,
+                                    chi=chi)
+    ref = _table(capsys.readouterr().out, 5)
+
+    X = np.array([[0.0, 1.0], [1.0, 0.0]])
+    Z = np.diag([1.0, -1.0])
+    g = tt.named_grid((4, 4))
+    verts = list(g.vertices())
+    half = [("map", [v], tt.imaginary_time_kraus(-h * X, dtau / 2))
+            for v in verts]
+    layer = list(half)
+    for group in tt.edge_color(g, 4):
+        layer += [("map", pair, tt.imaginary_time_kraus(-J * np.kron(Z, Z),
+                                                        dtau))
+                  for pair in group]
+    layer += half
+    rho = tt.density_matrix_tensornetworkstate(torch.float64,
+                                               lambda v: "mixed", g)
+    obs_x = [("X", [v]) for v in verts]
+    obs_zz = [("ZZ", [e.src, e.dst]) for e in g.edges()]
+    rows = []
+    for s in range(steps):
+        rho, errs = tt.apply_circuit(
+            layer, rho, apply_kwargs=dict(maxdim=chi, cutoff=1e-12,
+                                          normalize_tensors=True))
+        xs = np.real(tt.pauli_expectation(rho, obs_x, alg="bp"))
+        zzs = np.real(tt.pauli_expectation(rho, obs_zz, alg="bp"))
+        energy = (-J * np.sum(zzs) - h * np.sum(xs)) / len(verts)
+        s2 = -np.log2(tt.purity(rho, alg="bp")) / len(verts)
+        rows.append([2 * dtau * (s + 1), energy, np.mean(xs), s2,
+                     max((float(e) for e in errs), default=0.0)])
+    rows = np.array(rows)
+    assert ref.shape == rows.shape == (steps, 5)
+    np.testing.assert_allclose(rows[:, :4], ref[:, :4], atol=2e-6)
+    np.testing.assert_allclose(rows[:, 4], ref[:, 4], rtol=1e-2, atol=1e-12)
