@@ -119,7 +119,35 @@ Phases, each printing its checks and seconds:
    χ=8 cap binds and 1e-2 after it (from there the run amplifies rounding;
    a second CPU run on one thread prints the CPU's own spread), the times
    side by side;
-15. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
+15. ``generic_bmps``: the generic engine's second half, each check run
+   again on the CPU in this process with times (CUDA events and the host
+   clock) side by side.  The card factorizes with cuSOLVER, the CPU with
+   numpy's LAPACK; where a factorization may pick its basis (a boundary
+   MPS's rank-1 starting strand, a degenerate spectrum), a truncated fit
+   depends on that pick, so each such check runs a third time on the CPU
+   with torch's LAPACK (MKL) and holds card against CPU within 1e-5, or 10x
+   the spread of the CPU's two LAPACKs where that is larger (printed).
+   (a) examples/ising_2d_dynamics.py at its defaults (5x5, χ=5, 20 batched
+   layers, complex64; counted: K1-K4 launch 0 times), ``batched_to_tns``,
+   the boundary-MPS ⟨Z⟩ at (3, 3) at rank 4 beside BP's: the fit on the
+   card's state, card against CPU; the two runs' BP and BMPS ⟨Z⟩ within
+   1e-5 relative, or 10x the CPU's spread between its thread count and one
+   thread, or twice its complex64 run's distance from complex128 (the
+   rounding each complex64 run carries), whichever is largest (printed),
+   the BMPS reading plus 10x the fit's two-LAPACK spread.
+   (b) examples/boundarymps_convergence.py's 5x5 χ=2 square lattice:
+   centre ⟨Z⟩ by BP, at ranks 1-16 and exactly, card against CPU per
+   value, the rank-16 error against "exact" below BP's.  (c)
+   examples/loopcorrections.py's 2x2 hexagonal and 3x3 states: BP,
+   loop-corrected and exact norms and ⟨Z⟩, card against CPU within 1e-5,
+   the loop series closer to exact than BP.  (d) a 4x4 χ=4 complex128
+   state: ``sample`` ("bp"), ``sample_directly_certified`` and
+   ``sample_certified`` ("boundarymps", ranks 8), the card's draws forced
+   on the CPU runs through the draw hook, logq and p/q card against CPU,
+   and samples/s.  (e) ``truncate`` to χ=2 by "bp" and "boundarymps":
+   fidelity and exact ⟨Z⟩ card against CPU.  (f) (a)'s state through
+   ``save_state`` / ``load_state`` onto the card: equal tensors;
+16. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
    and off (CUDA events, after warm-up), chi64 with K3 off / on / on / off;
    then each kernel on the batches of phase 2 that have the main path's
    shapes (K4: the microbenchmark's and [8,512,512]): its call time (host
@@ -136,11 +164,13 @@ Phases, each printing its checks and seconds:
 
 At the very end ``torch.profiler`` reads the device's busy share of the
 BMPS evaluation, of the two samplers, of the all-site loop-corrected ⟨Z⟩,
-of one variational step and of one chi10 layer of the generic engine
-(with its count of device operations).
+of one variational step, of one chi10 layer of the generic engine (with
+its count of device operations) and of one rank-4 boundary-MPS ⟨Z⟩ of the
+generic engine.
 
 Each main path (chi10, chi64, rolled, ensemble, noisy, qr, microbench,
-measure, loops, variational and its no-grad energy, generic) runs with every launch
+measure, loops, variational and its no-grad energy, generic,
+generic_bmps) runs with every launch
 counter set to 0 just before it and read just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
@@ -2128,6 +2158,392 @@ def generic_phase(tt, dev, engine, counters, card):
     return launches, {"generic chi10 layer": (one_layer, layer_ms)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the generic engine's second half (boundary MPS, loops, sampling,
+# truncation, checkpoints)
+# ---------------------------------------------------------------------------
+
+GBMPS_LAYERS = 20  # (a): examples/ising_2d_dynamics.py at its defaults
+
+
+def ising_2d_example(tt, dev, nl=GBMPS_LAYERS, chi=5, rank=4,
+                     dtype=torch.complex64):
+    """(a): examples/ising_2d_dynamics.py at its defaults (5x5, χ=5, 20
+    batched layers, complex64), then ``batched_to_tns`` and the generic
+    engine's boundary-MPS ⟨Z⟩ at (3, 3) at rank 4 beside BP's; returns
+    (BP ⟨Z⟩, BMPS ⟨Z⟩, largest gate error, the generic state)."""
+    from tensornetworkquantumsimulator_torch import parallel as tp
+
+    g = tt.named_grid((5, 5))
+    spec, state = tp.batched_product_state(g, chi=chi, dtype=dtype,
+                                           device=dev)
+    layer_fn = tp.make_layer_fn(
+        tp.BatchedCircuit(tfim_layer(tt, g), g, spec=spec), chi=chi,
+        cutoff=1e-10, device=dev)
+    z_fn = tp.make_expectation_fn(spec, tt.op_matrix("Z", 2),
+                                  real_output=True)
+    err = 0.0
+    for _ in range(nl):
+        state, errs = layer_fn(state)
+        err = max(err, float(errs.max()))
+    z_bp = float(z_fn(state)[spec.vertex_position((3, 3))])
+    psi = tp.batched_to_tns(spec, state, g, tt.siteinds("S=1/2", g))
+    z_bmps = complex(tt.expect(psi, ("Z", [(3, 3)]), alg="boundarymps",
+                               mps_bond_dimension=rank))
+    return z_bp, z_bmps, err, psi
+
+
+BMPS_RANKS = (1, 2, 4, 8, 16)
+
+
+def bmps_convergence_example(tt, dev):
+    """(b): examples/boundarymps_convergence.py on its 5x5 χ=2 square
+    lattice (complex64, the port's generator seeded 1634): centre ⟨Z⟩ by
+    BP, by the boundary MPS at ranks 1-16, and exactly."""
+    g = tt.named_grid((5, 5))
+    tt.seed(1634)
+    psi = tt.random_tensornetworkstate(torch.complex64, g, "S=1/2",
+                                       bond_dimension=2, device=dev)
+    obs = ("Z", g.center()[0])
+    vals = [tt.expect(psi, obs, alg="bp")]
+    vals += [tt.expect(psi, obs, alg="boundarymps", mps_bond_dimension=r)
+             for r in BMPS_RANKS]
+    vals.append(tt.expect(psi, obs, alg="exact"))
+    return np.array([complex(v) for v in vals])
+
+
+def loopcorrections_example(tt, dev):
+    """(c): examples/loopcorrections.py, its 2x2 hexagonal lattice (χ=3,
+    loops to size 11) and its 3x3 grid (χ=2, ⟨Z⟩ at the centre, loops to
+    size 6), complex64, BP-normalized: BP, loop-corrected and exact norm,
+    then ⟨Z⟩ the same three ways."""
+    tt.seed(1634)
+    out = []
+    for g, chi, size in ((tt.named_hexagonal_lattice_graph(2, 2), 3, 11),
+                         (tt.named_grid((3, 3)), 2, 6)):
+        psi = tt.normalize(tt.random_tensornetworkstate(
+            torch.complex64, g, "S=1/2", bond_dimension=chi, device=dev),
+            alg="bp")
+        out += [tt.norm(psi, alg="bp"),
+                tt.norm(psi, alg="loopcorrections",
+                        max_configuration_size=size),
+                tt.norm(psi, alg="exact")]
+    obs = ("Z", [list(g.vertices())[4]])
+    out += [tt.expect(psi, obs, alg="bp"),
+            tt.expect(psi, obs, alg="loopcorrections",
+                      max_configuration_size=6),
+            tt.expect(psi, obs, alg="exact")]
+    return np.array([complex(v) for v in out])
+
+
+SAMPLE_N = 4
+
+
+def sampling_state(tt, dev):
+    """(d)-(e): a random 4x4 χ=4 complex128 state (seed 7)."""
+    tt.seed(7)
+    return tt.random_tensornetworkstate(torch.complex128, tt.named_grid((4, 4)),
+                                        bond_dimension=4, device=dev)
+
+
+@contextlib.contextmanager
+def draws(sampling, forced=None):
+    """Record the sampler's draws (and, with ``forced``, hand those out in
+    their place): yields the list of outcomes."""
+    drawn = []
+    draw = sampling._draw
+
+    def hook(probs, generator=None):
+        out = forced[len(drawn)] if forced is not None else draw(probs,
+                                                                 generator)
+        drawn.append(out)
+        return out
+
+    sampling._draw = hook
+    try:
+        yield drawn
+    finally:
+        sampling._draw = draw
+
+
+def generic_samples(tt, psi, forced=None):
+    """(d): ``sample`` by "bp", ``sample_directly_certified`` and
+    ``sample_certified`` by "boundarymps" (ranks 8), SAMPLE_N each; returns
+    (the draws, logq and p/q of the first, p/q of the second, samples/s of
+    each sampler)."""
+    from tensornetworkquantumsimulator_torch import sampling
+
+    gen = torch.Generator().manual_seed(11)
+    kw = dict(alg="boundarymps", projected_mps_bond_dimension=8,
+              norm_mps_bond_dimension=8, generator=gen)
+    rates, numbers = {}, []
+    with draws(sampling, forced) as drawn:
+        for name, run in (
+                ("bp", lambda: tt.sample(psi, SAMPLE_N, alg="bp",
+                                         generator=gen)),
+                ("boundarymps", lambda: tt.sample_directly_certified(
+                    psi, SAMPLE_N, **kw)),
+                ("certified", lambda: tt.sample_certified(
+                    psi, SAMPLE_N, certification_mps_bond_dimension=8,
+                    **kw))):
+            if psi.device().type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            rates[name] = SAMPLE_N / (time.perf_counter() - t0)
+            if name == "boundarymps":
+                numbers += [r["logq"] for r in out]
+            if name != "bp":
+                numbers += [complex(r["poverq"]).real for r in out]
+    return list(drawn), np.array(numbers, dtype=np.float64), rates
+
+
+def generic_truncations(tt, psi):
+    """(e): ``truncate`` by "bp" and by "boundarymps" (rank 8) to χ=2; per
+    result its fidelity with ``psi`` and exact ⟨Z⟩ at two sites."""
+    out = []
+    for kw in (dict(alg="bp"), dict(alg="boundarymps", mps_bond_dimension=8,
+                                    gauge_state=False)):
+        phi = tt.truncate(psi, maxdim=2, cutoff=1e-10,
+                          normalize_tensors=False, **kw)
+        assert phi.maxvirtualdim() == 2, phi.maxvirtualdim()
+        f = tt.inner(phi, psi, alg="exact") / np.sqrt(
+            abs(tt.norm_sqr(phi, alg="exact") * tt.norm_sqr(psi, alg="exact")))
+        z = tt.expect(phi, [("Z", [(1, 1)]), ("Z", [(3, 2)])], alg="exact")
+        out += [abs(f) ** 2] + [complex(v).real for v in z]
+    return np.array(out)
+
+
+GBMPS_REL = 1e-5  # card vs CPU, relative, where the CPU's spread is less
+
+
+@contextlib.contextmanager
+def torch_lapack():
+    """The CPU's factorizations through torch's LAPACK (MKL) in place of
+    numpy's, which the port calls on host tensors.  A rank-deficient QR (a
+    boundary MPS's rank-1 starting strand) or an SVD with a degenerate
+    spectrum may pick its basis; the two libraries pick differently, and
+    so does cuSOLVER on the card.  The spread between a CPU run on each
+    measures how far an output depends on that choice."""
+    from tensornetworkquantumsimulator_torch import gauge
+    from tensornetworkquantumsimulator_torch.ops import linalg
+
+    saved = linalg.svd, linalg.qr, gauge.svd
+    linalg.svd = gauge.svd = lambda m: torch.linalg.svd(m,
+                                                        full_matrices=False)
+    linalg.qr = lambda m: torch.linalg.qr(m, mode="reduced")
+    try:
+        yield
+    finally:
+        linalg.svd, linalg.qr, gauge.svd = saved
+
+
+def free_bar(spread):
+    """The card-vs-CPU bar of outputs whose CPU runs on the two LAPACKs
+    read ``spread`` apart: GBMPS_REL, or 10x the spread where larger."""
+    return np.maximum(GBMPS_REL, 10 * np.asarray(spread))
+
+
+def moved(psi, device):
+    """A copy of a generic state with its tensors on ``device``."""
+    out = psi.copy()
+    for v in out.vertices():
+        out.setindex_preserve(out[v].to(device), v)
+    return out
+
+
+def generic_bmps_phase(tt, dev, counters, card):
+    """The generic engine's second half on the card, (a)-(f), each check
+    run again on the CPU in this process; every reading is printed before
+    any bar is held.  Returns (launches of the counted (a) run, {name:
+    (call, ms)} for the busy share)."""
+    import tempfile
+
+    failed = []
+
+    def bar(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    def cpu_timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (a) counted: the batched layers run with no TNQS_* knob, so no kernel
+    launches, ((z_bp, z_bmps, err, psi), ms, host_ms) = counted(
+        counters, "generic_bmps", (), lambda: timed(
+            lambda: ising_2d_example(tt, dev)))
+    bar(not any(launches.values()), f"(a) kernels launched {launches}")
+    assert psi.device().type == "cuda", psi.device()
+    (z_bp_c, z_bmps_c, err_c, _), cpu_ms = cpu_timed(
+        lambda: ising_2d_example(tt, "cpu"))
+    # the CPU's own spreads: on one thread, and against complex128 (the
+    # rounding a complex64 run carries, which two such runs may each hold)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = ising_2d_example(tt, "cpu")[:2]
+    finally:
+        torch.set_num_threads(threads)
+    wide = ising_2d_example(tt, "cpu", dtype=torch.complex128)[:2]
+    run_c = np.array([z_bp_c, z_bmps_c])
+    r_run = np.abs(np.array([z_bp, z_bmps]) - run_c) / np.abs(run_c)
+    thr = np.abs(np.array(one) - run_c) / np.abs(run_c)
+    c64 = np.abs(run_c - np.array(wide)) / np.abs(np.array(wide))
+    # the fit alone: the card's state measured on the CPU, on both LAPACKs
+    psi_c = moved(psi, "cpu")
+
+    def fit():
+        return complex(tt.expect(psi_c, ("Z", [(3, 3)]), alg="boundarymps",
+                                 mps_bond_dimension=4))
+
+    z_fit_c = fit()
+    with torch_lapack():
+        z_fit_m = fit()
+    r_fit = abs(z_bmps - z_fit_c) / abs(z_fit_c)
+    s_fit = abs(z_fit_m - z_fit_c) / abs(z_fit_c)
+    # the BMPS reading of the two runs carries the fit's free choice too
+    bar_run = np.maximum(np.maximum(GBMPS_REL, 10 * thr), 2 * c64)
+    bar_run[1] += 10 * s_fit
+    bar(np.isfinite([z_bp, z_bmps.real, err]).all(), "(a) non-finite")
+    bar(r_fit <= free_bar(s_fit), f"(a) the fit card vs CPU {r_fit:.3e} > "
+                                  f"{free_bar(s_fit):.1e}")
+    bar((r_run <= bar_run).all(), f"(a) card vs CPU (BP, BMPS) {r_run} > "
+                                  f"{bar_run}")
+    log("generic_bmps", f"(a) ising_2d_dynamics 5x5 chi=5 c64, "
+                        f"{GBMPS_LAYERS} batched layers: launches {launches};"
+                        f" max gate error {err:.3e}; <Z>(3,3) BP {z_bp:.6f},"
+                        f" boundary MPS rank 4 {z_bmps.real:.6f}"
+                        f"{z_bmps.imag:+.1e}j; the fit on the card's state, "
+                        f"card vs CPU {r_fit:.2e}, the CPU's two LAPACKs "
+                        f"{s_fit:.2e} (bar {free_bar(s_fit):.1e}); card's run"
+                        f" vs CPU's run (BP, BMPS) {r_run[0]:.2e}, "
+                        f"{r_run[1]:.2e}, the CPU on 1 vs {threads} threads "
+                        f"{thr[0]:.2e}, {thr[1]:.2e}, its complex64 vs "
+                        f"complex128 {c64[0]:.2e}, {c64[1]:.2e} (bars "
+                        f"{bar_run[0]:.1e}, {bar_run[1]:.1e}); {ms:.0f} ms "
+                        f"between CUDA events ({host_ms:.0f} ms host) on the "
+                        f"card, {cpu_ms:.0f} ms on the CPU")
+
+    # (b) rank convergence, card vs CPU per rank
+    (conv, ms, host_ms) = timed(lambda: bmps_convergence_example(tt, dev))
+    conv_c, cpu_ms = cpu_timed(lambda: bmps_convergence_example(tt, "cpu"))
+    with torch_lapack():
+        conv_m = bmps_convergence_example(tt, "cpu")
+    per_rank = np.abs(conv - conv_c) / np.abs(conv_c)
+    spread = np.abs(conv_m - conv_c) / np.abs(conv_c)
+    err_bp, err16 = abs(conv[0] - conv[-1]), abs(conv[-2] - conv[-1])
+    bar(np.isfinite(conv).all() and (per_rank <= free_bar(spread)).all(),
+        f"(b) card vs CPU {per_rank} > {free_bar(spread)}")
+    bar(err16 < err_bp, f"(b) rank 16 {err16:.3e} vs BP {err_bp:.3e}")
+
+    def e1(x):
+        return [float(f"{v:.1e}") for v in x]
+
+    log("generic_bmps", f"(b) boundarymps_convergence 5x5 chi=2 c64 centre "
+                        f"<Z>: BP {conv[0].real:+.6f}, ranks {BMPS_RANKS} "
+                        f"{[f'{v.real:+.6f}{v.imag:+.1e}j' for v in conv[1:-1]]}"
+                        f", exact {conv[-1].real:+.6f}; |rank 16 - exact| "
+                        f"{err16:.2e} vs |BP - exact| {err_bp:.2e}; card vs "
+                        f"CPU per value {e1(per_rank)}, the CPU's two LAPACKs"
+                        f" {e1(spread)} (bars {e1(free_bar(spread))}); "
+                        f"{ms:.0f} ms on the card ({host_ms:.0f} ms host), "
+                        f"{cpu_ms:.0f} ms on the CPU")
+
+    # (c) loop corrections
+    (loops, ms, host_ms) = timed(lambda: loopcorrections_example(tt, dev))
+    loops_c, cpu_ms = cpu_timed(lambda: loopcorrections_example(tt, "cpu"))
+    r_loops = np.abs(loops - loops_c) / np.abs(loops_c)
+    bar(np.isfinite(loops).all() and (r_loops <= GBMPS_REL).all(),
+        f"(c) card vs CPU {r_loops}")
+    z_err = [abs(loops[k] - loops[8]) for k in (6, 7)]
+    bar(z_err[1] < z_err[0], f"(c) loops vs BP against exact {z_err}")
+    log("generic_bmps", f"(c) loopcorrections c64: norms BP / loops / exact "
+                        f"hex 2x2 {[round(float(abs(x)), 6) for x in loops[:3]]}"
+                        f", 3x3 {[round(float(abs(x)), 6) for x in loops[3:6]]}"
+                        f"; 3x3 centre <Z> BP / loops(6) / exact "
+                        f"{[round(float(x.real), 6) for x in loops[6:]]}; card vs "
+                        f"CPU max {r_loops.max():.2e} (bar 1e-5); {ms:.0f} ms"
+                        f" on the card ({host_ms:.0f} ms host), {cpu_ms:.0f}"
+                        f" ms on the CPU (its contraction orders cached by "
+                        f"the card's run)")
+
+    # (d) sampling: the card draws, the CPU run takes the card's draws
+    psi_s = sampling_state(tt, dev)
+    ((drawn, nums, rates), ms, host_ms) = timed(
+        lambda: generic_samples(tt, psi_s))
+    (drawn_c, nums_c, rates_c), cpu_ms = cpu_timed(
+        lambda: generic_samples(tt, sampling_state(tt, "cpu"), forced=drawn))
+    with torch_lapack():
+        _, nums_m, _ = generic_samples(tt, sampling_state(tt, "cpu"),
+                                       forced=drawn)
+    r_s = np.abs(nums - nums_c) / np.maximum(np.abs(nums_c), 1.0)
+    s_s = np.abs(nums_m - nums_c) / np.maximum(np.abs(nums_c), 1.0)
+    bar(drawn_c == drawn and np.isfinite(nums).all()
+        and (r_s <= free_bar(s_s)).all(),
+        f"(d) card vs CPU {r_s} > {free_bar(s_s)}")
+    log("generic_bmps", f"(d) 4x4 chi=4 c128, {SAMPLE_N} samples each, card "
+                        f"draws forced on the CPU ({len(drawn)} draws): logq "
+                        f"and p/q card vs CPU {e1(r_s)}, the CPU's two "
+                        f"LAPACKs {e1(s_s)} (relative, floor 1; bars "
+                        f"{e1(free_bar(s_s))}); samples/s card "
+                        f"{ {k: round(v, 2) for k, v in rates.items()} }, "
+                        f"CPU { {k: round(v, 2) for k, v in rates_c.items()} }"
+                        f"; {ms:.0f} ms on the card ({host_ms:.0f} ms host)")
+
+    # (e) truncation
+    (trunc, ms, host_ms) = timed(lambda: generic_truncations(tt, psi_s))
+    trunc_c, cpu_ms = cpu_timed(
+        lambda: generic_truncations(tt, sampling_state(tt, "cpu")))
+    with torch_lapack():
+        trunc_m = generic_truncations(tt, sampling_state(tt, "cpu"))
+    d_tr, s_tr = np.abs(trunc - trunc_c), np.abs(trunc_m - trunc_c)
+    bar(np.isfinite(trunc).all() and (d_tr <= free_bar(s_tr)).all(),
+        f"(e) card vs CPU {d_tr} > {free_bar(s_tr)}")
+    log("generic_bmps", f"(e) truncate 4x4 chi=4 -> 2: fidelity, <Z>(1,1), "
+                        f"<Z>(3,2) by bp {np.round(trunc[:3], 6).tolist()}, "
+                        f"by boundarymps {np.round(trunc[3:], 6).tolist()}; "
+                        f"card vs CPU {e1(d_tr)}, the CPU's two LAPACKs "
+                        f"{e1(s_tr)} (bars {e1(free_bar(s_tr))}); {ms:.0f} ms on "
+                        f"the card ({host_ms:.0f} ms host), {cpu_ms:.0f} ms "
+                        f"on the CPU")
+
+    # (f) a checkpoint round trip from and onto the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        tt.save_state(path, psi)
+        back = tt.load_state(path, device=dev)
+    bar(all(back[v].device.type == "cuda" for v in back.vertices())
+        and all(torch.equal(back[v].data, psi[v].data)
+                for v in psi.vertices()), "(f) tensors differ")
+    z_back = complex(tt.expect(back, ("Z", [(3, 3)]), alg="boundarymps",
+                               mps_bond_dimension=4))
+    bar(abs(z_back - z_bmps) <= 1e-6, f"(f) {z_back} vs {z_bmps}")
+    log("generic_bmps", f"(f) save_state / load_state of (a)'s state through "
+                        f"the host, onto the card: tensors equal, rank-4 "
+                        f"<Z>(3,3) {z_back.real:.6f}")
+    assert not failed, f"generic_bmps: {failed}"
+
+    def one_bmps():
+        return tt.expect(psi, ("Z", [(3, 3)]), alg="boundarymps",
+                         mps_bond_dimension=4)
+
+    _, bmps_ms, _ = timed(one_bmps)
+    return launches, {"generic rank-4 BMPS <Z>": (one_bmps, bmps_ms)}
+
+
 def busy_shares(profiled: dict, card, phase: str = "measure") -> None:
     """The device's busy share of each call in ``profiled`` (name → (call,
     its milliseconds without the profiler)): the device time of every
@@ -2207,7 +2623,8 @@ def colour_groups(tt) -> None:
 # layers each counted main path runs (the ensemble's of 8 members; the
 # measure path is one call of ``batched_truncate``)
 LAYERS = {"chi10": 5, "chi64": 2, "rolled": 10, "ensemble": ENSEMBLE_LAYERS,
-          "noisy": NOISY_LAYERS, "measure": 1, "generic": GENERIC_LAYERS}
+          "noisy": NOISY_LAYERS, "measure": 1, "generic": GENERIC_LAYERS,
+          "generic_bmps": GBMPS_LAYERS}
 TIMES_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
               "unit", "fp32_bound_ms", "flops", "bytes", "library_ms",
               "library_device_ms", "host_us", "library_host_us",
@@ -2362,6 +2779,9 @@ def main() -> int:
     paths["generic"], generic_profiled = generic_phase(tt, dev, engine,
                                                        counters, card)
     done("generic")
+    paths["generic_bmps"], bmps_profiled = generic_bmps_phase(tt, dev,
+                                                              counters, card)
+    done("generic_bmps")
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
 
     # 15. times
@@ -2472,6 +2892,7 @@ def main() -> int:
     done("times")
     busy_shares(profiled, card)
     busy_shares(generic_profiled, card, "generic")
+    busy_shares(bmps_profiled, card, "generic_bmps")
     done("busy")
 
     meta = {

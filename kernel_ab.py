@@ -19,6 +19,13 @@ kernels.  Call time is CUDA
 events around back-to-back calls, device time a CUDA graph of the calls,
 as in ``chip_smoke.py``.  To compare two versions on one card, run them in
 turns (A, B, B, A), one process each.
+
+    python3 kernel_ab.py --generic [DIR]
+
+times the generic engine instead, which no kernel serves: 5 layers of
+``chip_smoke.py``'s chi10 circuit through ``apply_circuit`` from the
+product state, then 3 more each between CUDA events, and the host syncs
+of one more (CUDA's sync debug mode); one JSON line.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import (FAST_STACK, K4_TIMED, REPO, device_ms, gram,
+from chip_smoke import (FAST_STACK, GENERIC_APPLY, GENERIC_LAYERS, K4_TIMED,
+                        REPO, count_syncs, device_ms, generic_tfim, gram,
                         layers_per_second, random_vertex_state, time_ms)
 
 # (batch, n, rank) of the Gram batches K1 and K2 are timed on
@@ -60,7 +68,32 @@ def kernel_breakdown(fn) -> dict:
     return out
 
 
-def main(repo: Path) -> int:
+def generic_layers(tt, repo: Path) -> None:
+    """One JSON line: ms of each of 3 generic chi10 layers (CUDA events)
+    after GENERIC_LAYERS from the product state, and one layer's syncs."""
+    dev = tt.select_device("cuda")
+    _, layer, _, psi, z = generic_tfim(tt, dev, GENERIC_LAYERS)
+
+    def one():
+        return tt.apply_circuit(layer, psi, apply_kwargs=GENERIC_APPLY)
+
+    ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    _, syncs = count_syncs(one)
+    print(json.dumps({"repo": str(repo), "generic_chi10_layer_ms": ms,
+                      "host_syncs_per_layer": syncs,
+                      "z_mean": float(z.mean()),
+                      "card": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def main(repo: Path, generic: bool = False) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -69,6 +102,10 @@ def main(repo: Path) -> int:
         return 2
     sys.path.insert(0, str(repo))
     import tensornetworkquantumsimulator_torch as tt
+
+    if generic:
+        generic_layers(tt, repo)
+        return 0
     from tensornetworkquantumsimulator_torch.parallel import cuda_bp as cb
     from tensornetworkquantumsimulator_torch.parallel import cuda_build
     from tensornetworkquantumsimulator_torch.parallel import cuda_linalg as cl
@@ -138,5 +175,6 @@ def main(repo: Path) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(Path(sys.argv[1]).resolve() if len(sys.argv) > 1
-                  else REPO))
+    args = [a for a in sys.argv[1:] if a != "--generic"]
+    sys.exit(main(Path(args[0]).resolve() if args else REPO,
+                  generic="--generic" in sys.argv[1:]))

@@ -1,8 +1,6 @@
 """Whole-network contraction dispatcher (`src/contract.jl`).
 
-The counterpart of ``tensornetworkquantumsimulator_tpu.engines.contract``
-for ``alg="exact"`` and ``alg="bp"``.  The boundary-MPS engine of the
-generic network is not ported yet: ``alg="boundarymps"`` raises."""
+The counterpart of ``tensornetworkquantumsimulator_tpu.engines.contract``."""
 
 from __future__ import annotations
 
@@ -10,12 +8,6 @@ from ..models.tensornetwork import AbstractTensorNetwork
 from ..ops.paths import contraction_sequence
 from ..ops.tensor import contract as contract_list
 from .beliefpropagation import BeliefPropagationCache, default_bp_update_kwargs
-
-NOT_PORTED = (
-    "the generic engine's {alg!r} backend is not ported to the PyTorch "
-    "package yet (it comes with engines/boundarymps.py and "
-    "engines/loopcorrection.py, the next slice of the port); the batched "
-    "engine has it in tensornetworkquantumsimulator_torch.parallel")
 
 
 def contract_network(tn: AbstractTensorNetwork, alg: str = "exact", **kwargs):
@@ -28,6 +20,12 @@ def contract_network(tn: AbstractTensorNetwork, alg: str = "exact", **kwargs):
         bp_update_kwargs = kwargs.pop("bp_update_kwargs", None) or default_bp_update_kwargs(tn)
         bpc = BeliefPropagationCache(tn).update(**bp_update_kwargs)
         return bpc.partitionfunction()
-    if alg in ("boundarymps", "loopcorrections"):
-        raise NotImplementedError(NOT_PORTED.format(alg=alg))
+    if alg == "boundarymps":
+        from .boundarymps import BoundaryMPSCache
+
+        mps_bond_dimension = kwargs.pop("mps_bond_dimension")
+        bmps_update_kwargs = kwargs.pop("bmps_update_kwargs", {})
+        cache = BoundaryMPSCache(tn, mps_bond_dimension)
+        cache = cache.update(**bmps_update_kwargs)
+        return cache.partitionfunction()
     raise ValueError(f"unknown contraction alg {alg!r}")

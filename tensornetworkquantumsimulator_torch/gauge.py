@@ -20,7 +20,7 @@ from .engines.beliefpropagation import (
 )
 from .models.tensornetwork import TensorNetworkState
 from .ops.index import Index, commoninds
-from .ops.linalg import pseudo_sqrt_inv_sqrt
+from .ops.linalg import pseudo_sqrt_inv_sqrt, svd
 from .ops.tensor import Tensor, contract_pair, real_of
 from .parallel.cuda_linalg import eigh_plain
 from .utils.checks import algorithm_check
@@ -74,7 +74,7 @@ def symmetric_gauge_inplace(bp_cache: BeliefPropagationCache, regularization=Non
 
         # Ce = conj(√X) · √Y over the bond; Ce = U diag(s) Vh
         ce = rootX.conj() @ rootY
-        uu, ss, vvh = torch.linalg.svd(ce, full_matrices=False)
+        uu, ss, vvh = svd(ce)
         k = ss.shape[0]
         new_l = Index(int(k), tags=l.tags)
         U = Tensor(uu, (l, new_l))

@@ -3,11 +3,23 @@
 The counterpart of ``tensornetworkquantumsimulator_tpu.ops.linalg``: the
 LAPACK-backed factorizations the reference reaches through ITensors (`qr`,
 `factorize_svd`, `eigen`, `svd`; `simple_update.jl:39-53`,
-`utils.jl:18-33,77-91`), as ``torch.linalg`` calls on the tensor's device.
-SVDs and eigendecompositions run in 64 bits (the reference's
-`safe_eigen`), and so do QRs; every eigh goes through
-``cuda_linalg.eigh_plain``, which hermitizes its input first.  The truncation rank is decided on the host:
-each truncated split copies its singular values to the host once.
+`utils.jl:18-33,77-91`).  SVDs and eigendecompositions run in 64 bits (the
+reference's `safe_eigen`), and so do QRs; every eigh goes through
+``cuda_linalg.eigh_plain`` on the tensor's device, which hermitizes its
+input first.  The truncation rank is decided on the host.
+
+SVDs and QRs run where the tensor lies, as the JAX package's `_xp` picks
+``jnp.linalg`` for device arrays and ``np.linalg`` for host ones: a CUDA
+matrix is factorized by ``torch.linalg`` (cuSOLVER) on the card, a CPU one
+by numpy's LAPACK, the routine the JAX package's generic engine calls on
+its host arrays.  A factorization of a rank-deficient matrix, or one with
+degenerate singular values, is free to pick its basis, and libraries pick
+differently: for the all-ones 4×2 strand a boundary MPS starts from,
+MKL's QR (torch's on the CPU) returns another second column than
+OpenBLAS's (numpy's), and cuSOLVER's another again, and a truncated
+boundary-MPS fit then takes another path.  On the CPU the port so takes
+the JAX package's path; on the card only gauge-free outputs (converged
+fits, exact contractions, BP) agree with the CPU's to rounding.
 """
 
 from __future__ import annotations
@@ -35,6 +47,25 @@ def _promote_f64(arr: torch.Tensor):
     if arr.dtype == torch.complex64:
         return arr.to(torch.complex128), arr.dtype
     return arr, arr.dtype
+
+
+def svd(mat: torch.Tensor):
+    """Reduced ``(U, S, Vh)`` on ``mat``'s device: numpy's LAPACK on the
+    CPU, ``torch.linalg.svd`` on the card."""
+    if mat.device.type != "cpu":
+        return torch.linalg.svd(mat, full_matrices=False)
+    u, s, vh = np.linalg.svd(mat.detach().resolve_conj().numpy(),
+                             full_matrices=False)
+    return torch.from_numpy(u), torch.from_numpy(s), torch.from_numpy(vh)
+
+
+def qr(mat: torch.Tensor):
+    """Reduced ``(Q, R)`` on ``mat``'s device: numpy's LAPACK on the CPU,
+    ``torch.linalg.qr`` on the card."""
+    if mat.device.type != "cpu":
+        return torch.linalg.qr(mat, mode="reduced")
+    q, r = np.linalg.qr(mat.detach().resolve_conj().numpy(), mode="reduced")
+    return torch.from_numpy(q), torch.from_numpy(r)
 
 
 def truncation_rank(s, maxdim=None, cutoff=None, mindim=1):
@@ -76,7 +107,7 @@ def svd_truncated(
     """
     mat, left, right = _matricize(t, left_inds)
     work, orig_dtype = _promote_f64(mat)
-    u, s, vh = torch.linalg.svd(work, full_matrices=False)
+    u, s, vh = svd(work)
     s_host = s.cpu().numpy()  # the one host read of the split
     k = truncation_rank(s_host, maxdim=maxdim, cutoff=cutoff, mindim=mindim)
     p = s_host.astype(np.float64) ** 2
@@ -113,7 +144,7 @@ def qr_factor(t: Tensor, left_inds, tags=("qr",)):
     holds one)."""
     mat, left, right = _matricize(t, left_inds)
     work, orig_dtype = _promote_f64(mat)
-    q, r = torch.linalg.qr(work, mode="reduced")
+    q, r = qr(work)
     q, r = q.to(orig_dtype), r.to(orig_dtype)
     k = q.shape[1]
     bond = Index(int(k), tags=tags)

@@ -1,11 +1,11 @@
-"""Lattice constructors of the batched-engine slice.
+"""Lattice constructors.
 
-A jax-free copy of ``named_grid``, ``named_path_graph``,
-``named_comb_tree``, ``heavy_hexagonal_lattice``, ``ibm_eagle_lattice`` and
-``_gate_vertices`` from
-``tensornetworkquantumsimulator_tpu.utils.lattices`` (the reference's
-`graph_ops.jl` geometry).  Vertex naming follows the JAX package exactly, so
-both packages compile the same slot tables.
+A jax-free copy of ``tensornetworkquantumsimulator_tpu.utils.lattices``
+(the reference's `graph_ops.jl` geometry and NamedGraphs re-exports):
+grids, paths, comb trees, heavy-hex and Eagle, Lieb, triangular and kagome
+lattices, and graphs from adjacency lists or circuits.  Vertex naming and
+edge order follow the JAX package exactly, so both packages compile the
+same slot tables.
 """
 
 from __future__ import annotations
@@ -144,3 +144,98 @@ def _gate_vertices(spec):
     # a bare coordinate tuple (or scalar) names a single vertex
     return [spec]
 
+
+def lieb_lattice(nx_: int, ny_: int, periodic: bool = False) -> NamedGraph:
+    """Lieb lattice: square grid with even-even vertices removed
+    (`graph_ops.jl:25-38`)."""
+    ok = (not periodic and nx_ % 2 == 1 and ny_ % 2 == 1) or (
+        periodic and nx_ % 2 == 0 and ny_ % 2 == 0
+    )
+    if not ok:
+        raise ValueError("lieb_lattice: odd dims if open, even dims if periodic")
+    g = named_grid((nx_, ny_), periodic=periodic)
+    for v in list(g.vertices()):
+        if v[0] % 2 == 0 and v[1] % 2 == 0:
+            g.rem_vertex_inplace(v)
+    return g
+
+
+def triangular_lattice(nx_: int, ny_: int, periodic: bool = False) -> NamedGraph:
+    """nx×ny triangular lattice: the square grid plus one diagonal per
+    plaquette, giving interior vertices degree 6 (2 up / 2 down / left /
+    right).  No reference counterpart (the reference builds custom graphs
+    for such geometries by hand); the batched engine is degree-generic, so
+    triangular states run through the same BP/simple-update path as grids
+    (degree-6 is already exercised by the 3-d torus).  ``periodic`` wraps
+    both axes (needs nx, ny > 2, like `named_grid`)."""
+    g = named_grid((nx_, ny_), periodic=periodic)
+    rmax = nx_ if periodic else nx_ - 1
+    cmax = ny_ if periodic else ny_ - 1
+    if periodic and (nx_ <= 2 or ny_ <= 2):
+        raise ValueError("periodic triangular lattice needs nx, ny > 2")
+    for r in range(1, rmax + 1):
+        for c in range(1, cmax + 1):
+            v = (r, c)
+            w = (r % nx_ + 1, c % ny_ + 1)
+            g.add_edge_inplace(NamedEdge(v, w))
+    return g
+
+
+def kagome_lattice(m: int, n: int) -> NamedGraph:
+    """Kagome (trihexagonal) lattice with m×n hexagons: the medial graph of
+    the hexagonal lattice — one vertex per honeycomb edge (named by its
+    midpoint coordinates), two vertices adjacent when their honeycomb edges
+    share an endpoint.  Corner-sharing triangles, degree ≤ 4.  No reference
+    counterpart; runs on the generic and batched engines like any graph."""
+    hg = named_hexagonal_lattice_graph(m, n)
+    mid = {}
+    for e in hg.edges():
+        u, v = e.src, e.dst
+        mid[frozenset((u, v))] = ((u[0] + v[0]) / 2, (u[1] + v[1]) / 2)
+    if len(set(mid.values())) != len(mid):
+        raise ValueError("hexagonal embedding produced colliding midpoints")
+    g = NamedGraph(sorted(mid.values()))
+    for hv in hg.vertices():
+        incident = sorted(
+            mid[frozenset((hv, w))] for w in hg.neighbors(hv)
+        )
+        for a, b in itertools.combinations(incident, 2):
+            if not g.has_edge(NamedEdge(a, b)):
+                g.add_edge_inplace(NamedEdge(a, b))
+    return g
+
+
+def topology_to_graph(topology) -> NamedGraph:
+    """Adjacency-pair list -> graph with integer vertices (`graph_ops.jl:40-49`)."""
+    nq = max(max(pair) for pair in topology)
+    g = NamedGraph(range(1, nq + 1))
+    for i, j in topology:
+        g.add_edge_inplace(NamedEdge(i, j))
+    return g
+
+
+def build_graph_from_gates(circuit) -> NamedGraph:
+    """Infer the lattice from a circuit's two-site gate support
+    (`graph_ops.jl:53-69`); errors if disconnected."""
+    vs = []
+    seen = set()
+    for gate in circuit:
+        for v in _gate_vertices(gate[1]):
+            if v not in seen:
+                seen.add(v)
+                vs.append(v)
+    g = NamedGraph(vs)
+    for gate in circuit:
+        qubits = _gate_vertices(gate[1])
+        if len(qubits) == 2:
+            if not g.has_edge(NamedEdge(qubits[0], qubits[1])):
+                g.add_edge_inplace(NamedEdge(qubits[0], qubits[1]))
+    if not g.is_connected():
+        raise ValueError(
+            "The circuit graph is not connected; simulate the connected "
+            "components separately (no entanglement is generated between them)."
+        )
+    return g
+
+
+build_graph_from_circuit = build_graph_from_gates

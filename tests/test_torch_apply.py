@@ -213,21 +213,18 @@ def test_full_update_matches_jax(solver):
                                atol=1e-8 * np.abs(ref).max())
 
 
-def test_channels_and_maps_on_density_matrix():
-    """A 2×3 density-matrix state (d=4): a Lindblad step (unitaries,
-    amplitude damping and dephasing channels) then an imaginary-time
-    ``"map"`` step; truncation errors and ⟨Z⟩, ⟨X⟩, purity against JAX."""
+def _density_matrix_circuits(gj, colored=True):
+    """The Lindblad step and the imaginary-time ``"map"`` step of
+    :func:`test_channels_and_maps_on_density_matrix` on the grid ``gj``;
+    the Rzz gates by colour groups (an order that depends on the hash
+    seed), or in the graph's edge order."""
     from tensornetworkquantumsimulator_tpu.utils import graphs as j_graphs
 
-    gj = j_lat.named_grid((2, 3))
-    rho_j = tnqs.density_matrix_tensornetworkstate(jnp.float64, lambda v: "+",
-                                                   gj)
-    rho_t = state_from_numpy(_plain(rho_j))
     X = np.array([[0.0, 1.0], [1.0, 0.0]])
     Z = np.diag([1.0, -1.0])
     dt = 0.1
     lind = [("Rx", [v], 0.4) for v in gj.vertices()]
-    for grp in j_graphs.edge_color(gj, 4):
+    for grp in j_graphs.edge_color(gj, 4) if colored else [gj.edges()]:
         lind += [("Rzz", [p.src, p.dst], 0.3) for p in grp]
     lind += [("amplitude_damping", [v], 0.05) for v in gj.vertices()]
     lind += [("dephasing", [v], 0.02) for v in gj.vertices()]
@@ -235,17 +232,151 @@ def test_channels_and_maps_on_density_matrix():
             for v in gj.vertices()]
     maps += [("map", [e.src, e.dst], tnqs.imaginary_time_kraus(
         -np.kron(Z, Z), dt)) for e in gj.edges()]
-    kw = dict(apply_kwargs=dict(maxdim=4, cutoff=1e-12,
-                                normalize_tensors=False))
-    for circ in (lind, maps):
-        rho_j, ej = tnqs.apply_circuit(circ, rho_j, **kw)
-        rho_t, et = tt.apply_circuit(circ, rho_t, **kw)
+    return lind, maps
+
+
+_DM_APPLY = dict(apply_kwargs=dict(maxdim=4, cutoff=1e-12,
+                                   normalize_tensors=False))
+# BP run to its fixed point: the answer no longer depends on the gauge
+_DM_CONVERGED = dict(cache_update_kwargs=dict(maxiter=200, tolerance=1e-15))
+
+
+def test_channels_and_maps_on_density_matrix():
+    """A 2×3 density-matrix state (d=4): a Lindblad step (unitaries,
+    amplitude damping and dephasing channels) then an imaginary-time
+    ``"map"`` step; truncation errors and ⟨Z⟩, ⟨X⟩, purity against JAX.
+
+    BP on ρ's flat network starts from all-ones messages, which a change
+    of bond basis does not carry along, so at BP's default tolerance its
+    answer depends on the gauge (~1e-7 in ⟨Z⟩ against the fixed
+    point, in the JAX package alone).  The two packages' evolved states
+    differ by such a gauge: the splits here have degenerate singular
+    values, whose vectors rounding picks.  So the default-tolerance
+    readout is compared on one state (JAX's, carried across), and each
+    package's own state is compared at BP's fixed point; both at the same
+    bars.  Each package's own state is compared at the default tolerance
+    too, its ⟨O⟩ within 1e-6: over hash seeds 0-11 the two read up to
+    1.0e-7 apart, and an Rx angle that acts as the identity on |+⟩ moves
+    the port's reading by 9.6e-8, while a dephasing or damping rate off by
+    0.5% moves it by 1.2e-4 and 1.5e-4."""
+    gj = j_lat.named_grid((2, 3))
+    rho_j = tnqs.density_matrix_tensornetworkstate(jnp.float64, lambda v: "+",
+                                                   gj)
+    rho_t = state_from_numpy(_plain(rho_j))
+    for circ in _density_matrix_circuits(gj):
+        rho_j, ej = tnqs.apply_circuit(circ, rho_j, **_DM_APPLY)
+        rho_t, et = tt.apply_circuit(circ, rho_t, **_DM_APPLY)
         np.testing.assert_allclose(et, ej, atol=1e-10)
     obs = [("Z", [v]) for v in gj.vertices()] + [("X", [(1, 2)]),
                                                 ("ZZ", [(1, 1), (1, 2)])]
-    for alg in ("bp", "exact"):
+    rho_c = state_from_numpy(_plain(rho_j))  # JAX's state, JAX's gauge
+    for alg, port, kw, atol in (("bp", rho_c, {}, 1e-10),
+                                ("bp", rho_t, _DM_CONVERGED, 1e-10),
+                                ("exact", rho_t, {}, 1e-10),
+                                ("bp", rho_t, {}, 1e-6)):
         np.testing.assert_allclose(
-            np.real(tt.pauli_expectation(rho_t, obs, alg=alg)),
-            np.real(tnqs.pauli_expectation(rho_j, obs, alg=alg)), atol=1e-10)
-        np.testing.assert_allclose(tt.purity(rho_t, alg=alg),
-                                   tnqs.purity(rho_j, alg=alg), rtol=1e-9)
+            np.real(tt.pauli_expectation(port, obs, alg=alg, **kw)),
+            np.real(tnqs.pauli_expectation(rho_j, obs, alg=alg, **kw)),
+            atol=atol)
+        np.testing.assert_allclose(tt.purity(port, alg=alg, **kw),
+                                   tnqs.purity(rho_j, alg=alg, **kw),
+                                   rtol=1e-9)
+
+
+def _record_bp(monkeypatch, mod, log):
+    """Log every BP update of ``mod``'s caches: a ``"update"`` mark, then
+    each sweep's edge schedule and mean message change."""
+    cls = mod.AbstractBeliefPropagationCache
+    sweep, update = cls.update_iteration_inplace, cls.update
+
+    def rec_sweep(self, edges, compute_diff=False, **kw):
+        d = sweep(self, edges, compute_diff=compute_diff, **kw)
+        log.append(([(e.src, e.dst) for e in edges], d / max(len(edges), 1)))
+        return d
+
+    def rec_update(self, *a, **kw):
+        log.append("update")
+        return update(self, *a, **kw)
+
+    monkeypatch.setattr(cls, "update_iteration_inplace", rec_sweep)
+    monkeypatch.setattr(cls, "update", rec_update)
+
+
+def test_density_matrix_bp_refreshes_match_jax(monkeypatch):
+    """Through both steps of the density-matrix test, the two packages
+    refresh BP at the same gates, sweep the same forest-cover schedule,
+    stop at the same sweep, and read the same mean message change: the
+    order of the port is the reference's, whatever the hash seed."""
+    from tensornetworkquantumsimulator_torch.engines import (
+        beliefpropagation as t_bp)
+    from tensornetworkquantumsimulator_tpu.engines import (
+        beliefpropagation as j_bp)
+
+    gj = j_lat.named_grid((2, 3))
+    rho_j = tnqs.density_matrix_tensornetworkstate(jnp.float64, lambda v: "+",
+                                                   gj)
+    rho_t = state_from_numpy(_plain(rho_j))
+    log_j, log_t = [], []
+    _record_bp(monkeypatch, j_bp, log_j)
+    _record_bp(monkeypatch, t_bp, log_t)
+    for circ in _density_matrix_circuits(gj):
+        rho_j, _ = tnqs.apply_circuit(circ, rho_j, **_DM_APPLY)
+        rho_t, _ = tt.apply_circuit(circ, rho_t, **_DM_APPLY)
+    assert len(log_t) == len(log_j) and log_t.count("update") >= 10
+    for a, b in zip(log_t, log_j):
+        if a == "update" or b == "update":
+            assert a == b
+            continue
+        assert a[0] == b[0]
+        assert abs(a[1] - b[1]) <= 1e-12
+
+
+def test_flat_bp_readout_depends_on_the_gauge():
+    """The cause the density-matrix test works around, in the port alone:
+    turning each bond of an evolved ρ by an orthogonal matrix (and its
+    inverse on the other side) leaves ρ as it is, and ⟨Z⟩ by "exact" and at
+    BP's fixed point with it, but moves ⟨Z⟩ at BP's default tolerance by
+    far more than rounding."""
+    gj = j_lat.named_grid((2, 3))
+    rho = tt.density_matrix_tensornetworkstate(torch.float64, lambda v: "+",
+                                               tt.named_grid((2, 3)))
+    for circ in _density_matrix_circuits(gj, colored=False):
+        rho, _ = tt.apply_circuit(circ, rho, **_DM_APPLY)
+
+    turned = rho.copy()
+    rng = np.random.default_rng(3)
+    for e in turned.graph().edges():
+        (l,) = turned.virtualinds(e)
+        g = np.linalg.qr(rng.standard_normal((l.dim, l.dim)))[0]
+        turn = tt.Tensor(torch.from_numpy(g), (l, l.prime()))
+        for v in (e.src, e.dst):  # Σ_l t1·G · Gᵀ·t2 = Σ_l t1·t2
+            turned.setindex_preserve(
+                (turned[v] * turn).replaceind(l.prime(), l), v)
+
+    obs = [("Z", [v]) for v in gj.vertices()] + [("X", [(1, 2)])]
+
+    def z(r, alg="bp", **kw):
+        return np.real(tt.pauli_expectation(r, obs, alg=alg, **kw))
+
+    np.testing.assert_allclose(z(turned, "exact"), z(rho, "exact"), atol=1e-12)
+    np.testing.assert_allclose(z(turned, **_DM_CONVERGED),
+                               z(rho, **_DM_CONVERGED), atol=1e-10)
+    assert np.abs(z(turned) - z(rho)).max() > 1e-8  # 5.6e-8
+
+
+@pytest.mark.parametrize("hashseed", ["2", "7"])
+def test_density_matrix_under_hash_seed(hashseed):
+    """The density-matrix test in a fresh process under the hash seeds
+    that failed it while the default-tolerance readout of each package's
+    own state was held to 1e-10."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONHASHSEED=hashseed, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly",
+         f"{__file__}::test_channels_and_maps_on_density_matrix"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]

@@ -5,6 +5,9 @@ naming CUDA, instead of running on the CPU quietly; with ``device="cpu"``
 (or the package's default set to the CPU) it builds CPU tensors and
 modules."""
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -61,8 +64,26 @@ def _identity(**kw):
     return tt.parallel.identity_messages(3, 2, 2, torch.complex64, **kw)
 
 
+def _load_state(**kw):
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        tt.save_state(path, tt.random_tensornetworkstate(
+            torch.float64, _grid(), bond_dimension=2, device="cpu"))
+        return tt.load_state(path, **kw)[(1, 1)].data
+
+
+def _load_batched_state(**kw):
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "batched.npz")
+        tt.save_batched_state(
+            path, tt.batched_product_state(_grid(), chi=2, device="cpu")[1])
+        return tt.load_batched_state(path, **kw).tensors
+
+
 # each entry point, returning one tensor of what it built
 _ENTRY_POINTS = {
+    "load_state": _load_state,
+    "load_batched_state": _load_batched_state,
     "batched_product_state": _state,
     "state_from_numpy": _from_numpy,
     "make_layer_fn": _layer,

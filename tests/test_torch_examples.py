@@ -281,3 +281,411 @@ def test_torch_example_thermal_states(capsys):
     assert ref.shape == rows.shape == (steps, 5)
     np.testing.assert_allclose(rows[:, :4], ref[:, :4], atol=2e-6)
     np.testing.assert_allclose(rows[:, 4], ref[:, 4], rtol=1e-2, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the examples of the generic engine's second half, and the batched-engine
+# examples whose parts the port already had (at the reduced arguments of
+# tests/test_examples.py)
+# ---------------------------------------------------------------------------
+
+_Z = np.diag([1.0, -1.0]).astype(np.complex64)
+_X = np.array([[0, 1], [1, 0]], dtype=np.complex64)
+_F = r"[-+]?[0-9.]+(?:e[-+]?[0-9]+)?"
+_C = r"\(?(" + _F + r"(?:[-+][0-9.]+(?:e[-+]?[0-9]+)?j)?)\)?"  # real or complex
+
+
+def _tfim_layer(g, dt=0.25, hx=1.0, hz=0.8, J=0.5):
+    layer = [("Rx", [v], 2 * hx * dt) for v in g.vertices()]
+    layer += [("Rz", [v], 2 * hz * dt) for v in g.vertices()]
+    for group in tt.edge_color(g, 4):
+        layer += [("Rzz", pair, 2 * J * dt) for pair in group]
+    return layer
+
+
+def test_torch_example_ising_2d_dynamics(capsys):
+    """examples/ising_2d_dynamics.py at 4×4, χ=3, 2 layers, boundary-MPS
+    rank 3: each layer's largest gate error and BP ⟨Z⟩ at (3, 3), then the
+    generic engine's boundary-MPS ⟨Z⟩ on the unpacked state."""
+    nl, chi, rank = 2, 3, 3
+    _example("ising_2d_dynamics").main(nl=nl, nx=4, ny=4, chi=chi,
+                                       mps_bond_dimension=rank)
+    out = capsys.readouterr().out
+    err_ref = _numbers(r"Maximum Gate error for layer was (\S+)", out)
+    z_ref = _numbers(r"BP Measured Sigmaz is (\S+)", out)
+    (bmps_ref,) = _numbers(r"Boundary MPS Measured Sigmaz is " + _C, out)
+
+    g = tt.named_grid((4, 4))
+    spec, state = tt.batched_product_state(g, chi=chi, dtype=torch.complex64)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(_tfim_layer(g), g,
+                                                  spec=spec),
+                                chi=chi, cutoff=1e-10)
+    z_fn = tt.make_expectation_fn(spec, tt.op_matrix("Z", 2),
+                                  real_output=True)
+    pos = spec.vertex_position((3, 3))
+    errs, zs = [], []
+    for _ in range(nl):
+        state, e = layer_fn(state)
+        errs.append(float(e.max()))
+        zs.append(float(z_fn(state)[pos]))
+    psi = tp.batched_to_tns(spec, state, g, tt.siteinds("S=1/2", g))
+    bmps = tt.expect(psi, ("Z", [(3, 3)]), alg="boundarymps",
+                     mps_bond_dimension=rank)
+    np.testing.assert_allclose(zs, np.real(z_ref), atol=1e-4)
+    np.testing.assert_allclose(errs, np.real(err_ref), rtol=2e-2, atol=1e-7)
+    np.testing.assert_allclose(complex(bmps), bmps_ref, atol=1e-4)
+    assert abs(complex(bmps) - zs[-1]) < 1e-2  # BP and BMPS agree here
+
+
+def test_torch_example_ising_3d_dynamics(capsys):
+    """examples/ising_3d_dynamics.py (3×3×3 torus, 7 colours, χ=2) for one
+    step: the centre's ⟨Z⟩ before and after, and the gate error."""
+    _example("ising_3d_dynamics").main(no_trotter_steps=1, chi=2)
+    out = capsys.readouterr().out
+    (z0_ref,) = _numbers(r"Initial Sigma Z on centre site: (\S+)", out)
+    (err_ref,) = _numbers(r"max gate error (\S+),", out)
+    (z1_ref,) = _numbers(r"Sigma z = (\S+)", out)
+
+    g = tt.named_grid((3, 3, 3), periodic=True)
+    h, J, dt = -1.0, -1.0, 0.04
+    layer = [("Rz", [v], h * dt) for v in g.vertices()]
+    for group in tt.edge_color(g, 7):
+        layer += [("Rxx", pair, 2 * J * dt) for pair in group]
+    layer += [("Rz", [v], h * dt) for v in g.vertices()]
+    spec, state = tt.batched_product_state(g, chi=2, dtype=torch.complex64)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(layer, g, spec=spec),
+                                chi=2, cutoff=1e-10)
+    z_fn = tt.make_expectation_fn(spec, tt.op_matrix("Z", 2),
+                                  real_output=True)
+    pos = spec.vertex_position(g.center()[0])
+    z0 = float(z_fn(state)[pos])
+    state, e = layer_fn(state)
+    np.testing.assert_allclose([z0, float(z_fn(state)[pos])],
+                               np.real([z0_ref, z1_ref]), atol=1e-4)
+    np.testing.assert_allclose(float(e.max()), np.real(err_ref), rtol=2e-2,
+                               atol=1e-7)
+
+
+def test_torch_example_heavyhex_ising_dynamics(capsys):
+    """examples/heavyhex_ising_dynamics.py on the 2×2 heavy-hex at χ=3 for
+    2 steps: layer fidelities, BP and boundary-MPS magnetisation; the
+    certified sampler's 2 samples are drawn from the port's own generator
+    (the bits differ from JAX's keys), so only their p/q are checked
+    finite and positive."""
+    _example("heavyhex_ising_dynamics").main(hx=2, hy=2, no_trotter_steps=2,
+                                             chi=3, nsamples=2)
+    out = capsys.readouterr().out
+    fid_ref = _numbers(r"layer fidelity (\S+)", out)
+    (bp_ref,) = _numbers(r"BP magnetisation on .*: (\S+)", out)
+    (bmps_ref,) = _numbers(r"Boundary-MPS magnetisation on .*: (\S+)", out)
+
+    g = tt.heavy_hexagonal_lattice(2, 2)
+    J, theta = 3.14159 / 4, 0.4
+    layer = [("Rx", [v], theta) for v in g.vertices()]
+    for group in tt.edge_color(g, 3):
+        layer += [("Rzz", pair, 2 * J) for pair in group]
+    spec, state = tt.batched_product_state(g, chi=3, dtype=torch.complex64)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(layer, g, spec=spec),
+                                chi=3, cutoff=1e-12)
+    fids = []
+    for _ in range(2):
+        state, errs = layer_fn(state)
+        fids.append(float(np.prod(1.0 - errs.numpy())))
+    c = spec.vertex_position(sorted(g.vertices())[len(g.vertices()) // 2])
+    z_fn = tt.make_expectation_fn(spec, tt.op_matrix("Z", 2),
+                                  real_output=True)
+    gauged, _ = tp.batched_symmetric_gauge(spec, state)
+    _, z_bmps_fn = tp.make_planar_bmps(spec, kmps=10, niters=20)
+    z_bmps = z_bmps_fn(gauged.tensors, torch.as_tensor(_Z))
+    np.testing.assert_allclose(fids, np.real(fid_ref), atol=2e-5)
+    np.testing.assert_allclose(float(z_fn(state)[c]), np.real(bp_ref),
+                               atol=1e-4)
+    np.testing.assert_allclose(float(torch.real(z_bmps[c])),
+                               np.real(bmps_ref), atol=1e-4)
+    sampler = tp.make_planar_certified_sampler(spec, norm_rank=10,
+                                               projected_rank=10, niters=12)
+    bits, logq, log_poverq = sampler(gauged.tensors, 2,
+                                     torch.Generator().manual_seed(0))
+    assert bits.shape == (2, spec.num_vertices)
+    assert torch.isfinite(log_poverq).all() and (logq < 0).all()
+
+
+def _random_states_of(example, dtype_j):
+    """The random states an example draws after ``tnqs.seed(1634)``, in its
+    order, carried into the port."""
+    import tensornetworkquantumsimulator_tpu as tnqs
+    from tensornetworkquantumsimulator_torch.models import state_from_numpy
+
+    from generic_carry import plain
+
+    tnqs.seed(1634)
+    out = []
+    for g, bond, normalize in example:
+        psi = tnqs.random_tensornetworkstate(dtype_j, g, "S=1/2",
+                                             bond_dimension=bond)
+        if normalize:
+            psi = tnqs.normalize(psi, alg="bp")
+        out.append(state_from_numpy(plain(psi)))
+    return out
+
+
+def test_torch_example_boundarymps_convergence(capsys):
+    """examples/boundarymps_convergence.py (complex64, χ=2; line, 3×3
+    hexagonal and 5×5 square): BP, ranks 1-16 and exact ⟨Z⟩ at the
+    centre, and ⟨ZZ⟩ at rank 16, on the same random states."""
+    import jax.numpy as jnp
+    from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
+
+    _example("boundarymps_convergence").main()
+    out = capsys.readouterr().out
+    blocks = out.split("Testing ")[1:]
+    graphs = [j_lat.named_grid((5, 1)), j_lat.named_hexagonal_lattice_graph(3, 3),
+              j_lat.named_grid((5, 5))]
+    states = _random_states_of([(g, 2, False) for g in graphs], jnp.complex64)
+    assert len(blocks) == 3
+    for psi, block in zip(states, blocks):
+        v = psi.graph().center()[0]
+        ref = _numbers(r"(?:value for Z|rank \d+): " + _C, block)
+        got = [tt.expect(psi, ("Z", v), alg="bp")]
+        got += [tt.expect(psi, ("Z", v), alg="boundarymps",
+                          mps_bond_dimension=r) for r in (1, 2, 4, 8, 16)]
+        got += [tt.expect(psi, ("Z", v), alg="exact")]
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+        zz = [complex(x) for m in re.findall(
+            r"Exact ZZ: " + _C + r"\s+BMPS ZZ: " + _C, block) for x in m]
+        if not psi.graph().is_tree():
+            vn = psi.graph().neighbors(v)[0]
+            np.testing.assert_allclose(
+                [tt.expect(psi, ("ZZ", [v, vn]), alg="boundarymps",
+                           mps_bond_dimension=16)], [zz[1]], atol=1e-4)
+            np.testing.assert_allclose(zz[1], zz[0], atol=1e-4)
+
+
+def test_torch_example_loopcorrections(capsys):
+    """examples/loopcorrections.py (complex64, χ=3; line, 2×2 hexagonal,
+    4×4 square): BP, loop-corrected and exact norms on the same random
+    states; then ⟨Z⟩ at the 3×3 centre by "exact", "bp" and
+    "loopcorrections" (size 6) and by the batched loop series."""
+    import jax.numpy as jnp
+    from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
+
+    _example("loopcorrections").main()
+    out = capsys.readouterr().out
+    graphs = [(j_lat.named_grid((4, 1)), 0),
+              (j_lat.named_hexagonal_lattice_graph(2, 2), 6),
+              (j_lat.named_grid((4, 4)), 4)]
+    states = _random_states_of([(g, 3, True) for g, _ in graphs] + [
+        (j_lat.named_grid((3, 3)), 2, True)], jnp.complex64)
+    norms = _numbers(r"norm:\s+" + _C, out)
+    assert len(norms) == 9
+    for k, (psi, (_, girth)) in enumerate(zip(states, graphs)):
+        got = [tt.norm(psi, alg="bp"),
+               tt.norm(psi, alg="loopcorrections",
+                       max_configuration_size=max(2 * girth - 1, 0)),
+               tt.norm(psi, alg="exact")]
+        np.testing.assert_allclose(got, norms[3 * k:3 * k + 3], rtol=1e-4)
+    psi = states[-1]
+    v = list(psi.vertices())[4]
+    m = re.search(r"exact (\S+)\s+bp (\S+)\s+loop-corrected (\S+)\s+"
+                  r"batched (\S+)", out)
+    ref = [float(x) for x in m.groups()]
+    obs = ("Z", [v])
+    cache = tt.BeliefPropagationCache(psi).update(maxiter=100, tolerance=1e-7)
+    spec, state = tp.batched_from_tns(psi, chi=2, messages=cache.messages())
+    fn = tp.make_loopcorrected_expectations(spec, psi.graph(), [obs],
+                                            max_configuration_size=6)
+    got = [complex(tt.expect(psi, obs, alg="exact")).real,
+           complex(tt.expect(psi, obs, alg="bp")).real,
+           complex(tt.expect(psi, obs, alg="loopcorrections",
+                             max_configuration_size=6)).real,
+           complex(fn(state)[0]).real]
+    np.testing.assert_allclose(got, ref, atol=2e-6 + 1e-4)
+
+
+def test_torch_example_noisy_circuit(capsys):
+    """examples/noisy_circuit.py at 3×3, 2 layers: the generic engine's
+    ⟨Z⟩ mean and purity per layer (float64), then the batched engine's
+    ⟨Z⟩ mean and purity (complex64) and the noise-rate sweep; samples are
+    checked for shape and log-probabilities ≤ 0 (the draws are the port's
+    own)."""
+    nx = ny = 3
+    layers, dt, h, J, p_dep, gam = 2, 0.15, 1.0, 1.0, 0.02, 0.03
+    _example("noisy_circuit").main(nx=nx, ny=ny, layers=layers)
+    out = capsys.readouterr().out
+    table = _table(out.split("samples from")[0], 3)
+    (zb_ref,) = _numbers(r"batched engine <Z>_mean after \d+ layers: (\S+)",
+                         out)
+    (pb_ref,) = _numbers(r"batched engine purity after \d+ layers: (\S+)", out)
+    sweep_ref = [float(x) for x in re.findall(
+        r"'([-+0-9.]+)'", out.split("noise-rate sweep")[1])]
+
+    g = tt.named_grid((nx, ny))
+    layer = [("Rx", [v], 2 * h * dt) for v in g.vertices()]
+    for group in tt.edge_color(g, 4):
+        layer += [("Rzz", pair, 2 * J * dt) for pair in group]
+    layer += [("depolarizing", [v], p_dep) for v in g.vertices()]
+    layer += [("amplitude_damping", [v], gam) for v in g.vertices()]
+    rho = tt.density_matrix_tensornetworkstate(torch.float64, lambda v: "0", g)
+    obs = [("Z", [v]) for v in g.vertices()]
+    rows = []
+    for t in range(layers):
+        rho, _ = tt.apply_circuit(layer, rho, apply_kwargs=dict(
+            maxdim=8, cutoff=1e-12, normalize_tensors=False))
+        z = np.real(tt.pauli_expectation(rho, obs, alg="bp"))
+        rows.append([t + 1, np.mean(z), tt.purity(rho, alg="bp")])
+    np.testing.assert_allclose(np.array(rows), table, atol=2e-6)
+    samples = tt.sample_density_matrix(rho, 5)
+    assert len(samples) == 5 and all(s["logp"] <= 1e-12 for s in samples)
+
+    chi = 8
+    dm = tt.density_matrix_tensornetworkstate(torch.complex64, lambda v: "0", g)
+    spec, state = tp.batched_from_tns(dm, chi=chi)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(layer, g, spec=spec, d=4,
+                                                  picture="rho"),
+                                chi=chi, cutoff=1e-10, normalize_tensors=False)
+    expect_fn = tp.make_pauli_expectation_fn(spec, chi, torch.complex64)
+    for _ in range(layers):
+        state, _ = layer_fn(state)
+    np.testing.assert_allclose(float(expect_fn(state)["Z"].mean()),
+                               np.real(zb_ref), atol=1e-4)
+    np.testing.assert_allclose(float(tp.batched_purity(spec, state)),
+                               np.real(pb_ref), atol=1e-4)
+    bits, logps = tp.make_rho_sampler(spec, chi, torch.complex64,
+                                      refresh_iters=6)(state, 5)
+    assert bits.shape == (5, spec.num_vertices) and (logps <= 1e-5).all()
+    _, noisy_layer = tp.make_noisy_field_layer_fn(
+        g, chi, noise=("depolarizing",), spec=spec, jit=False)
+    rates = torch.tensor([0.0, p_dep, 2 * p_dep, 4 * p_dep])
+    _, st0 = tp.batched_from_tns(dm, chi=chi)
+    estate = tp.stack_states([st0] * len(rates))
+    sweep = tp.ensemble_fn(noisy_layer, in_axes=(0, None, None, 0))
+    for _ in range(layers):
+        estate, _ = sweep(estate, 2 * h * dt, 2 * J * dt, rates)
+    z_sweep = [float(expect_fn(st)["Z"].mean())
+               for st in tp.unstack_states(estate)]
+    np.testing.assert_allclose(z_sweep, sweep_ref, atol=1e-4 + 5e-5)
+
+
+def test_torch_example_tfim_ground_state(capsys):
+    """examples/tfim_ground_state.py (3×3, χ=4, complex64, imaginary time)
+    for 50 steps: the energy printed every 25 steps and returned."""
+    nsteps = 50
+    e_ref = _example("tfim_ground_state").main(nsteps=nsteps)
+    printed = _numbers(r"E = (\S+)", capsys.readouterr().out)
+
+    g = tt.named_grid((3, 3))
+    tau, hx, J = 0.05, 3.0, 1.0
+    layer = [("Rx", [v], 2j * tau * hx) for v in g.vertices()]
+    for group in tt.edge_color(g, 4):
+        layer += [("Rzz", pair, 2j * tau * J) for pair in group]
+    spec, state = tt.batched_product_state(g, chi=4, dtype=torch.complex64)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(layer, g, spec=spec),
+                                chi=4, cutoff=1e-10, bp_maxiter=30)
+
+    def energy(st):
+        st = tt.bp_update(spec, st, maxiter=50, tolerance=1e-7)
+        ex = tt.local_expectations(spec, st, tt.op_matrix("X", 2))
+        ezz = tp.bond_expectations(spec, st, tt.op_matrix("Z", 2),
+                                   tt.op_matrix("Z", 2))
+        return float(torch.real(-hx * ex.sum() - J * ezz.sum()))
+
+    es = []
+    for step in range(1, nsteps + 1):
+        state, _ = layer_fn(state)
+        if step % 25 == 0:
+            es.append(energy(state))
+    np.testing.assert_allclose(es, np.real(printed), rtol=1e-4)
+    np.testing.assert_allclose(energy(state), e_ref, rtol=1e-4)
+
+
+def test_torch_example_loschmidt_echo(capsys):
+    """examples/loschmidt_echo.py (4×4, χ=3, complex64) for 2 steps:
+    log|echo| and the rate function per step."""
+    steps, chi = 2, 3
+    _example("loschmidt_echo").main(steps=steps, chi=chi)
+    out = capsys.readouterr().out
+    ref = np.real(_numbers(r"log\|echo\|=(\S+)", out))
+
+    g = tt.named_grid((4, 4))
+    dt, hx, J = 0.15, 1.0, 0.6
+    layer = [("Rx", [v], 2 * hx * dt) for v in g.vertices()]
+    for group in tt.edge_color(g, 4):
+        layer += [("Rzz", pair, 2 * J * dt) for pair in group]
+    spec, s0 = tt.batched_product_state(g, chi=chi, dtype=torch.complex64)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(layer, g, spec=spec),
+                                chi=chi)
+    log_norm0, _ = tp.batched_inner(spec, s0, s0, maxiter=60)
+    st, got = s0, []
+    for _ in range(steps):
+        st, _ = layer_fn(st)
+        log_abs, _ = tp.batched_loschmidt_echo(spec, s0, st,
+                                               log_norm0=log_norm0, maxiter=60)
+        got.append(float(log_abs))
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_torch_example_correlation_functions(capsys):
+    """examples/correlation_functions.py (5×5, χ=3, complex64) for 2
+    layers: the connected correlators along row 3 per layer, then the
+    boundary-MPS ⟨ZZ⟩ of the same and two cross-row pairs."""
+    steps, chi = 2, 3
+    _example("correlation_functions").main(steps=steps, chi=chi)
+    out = capsys.readouterr().out
+    corr_ref = np.real(_numbers(r"C\(\d\)=(\S+)", out)).reshape(steps, 4)
+    bmps_ref = np.real(_numbers(r"\)=([-+][0-9.]+)", out.split(
+        "boundary-MPS")[1]))
+
+    g = tt.named_grid((5, 5))
+    dt, hx, J = 0.2, 1.0, 0.5
+    layer = [("Rx", [v], 2 * hx * dt) for v in g.vertices()]
+    for group in tt.edge_color(g, 4):
+        layer += [("Rzz", pair, 2 * J * dt) for pair in group]
+    spec, state = tt.batched_product_state(g, chi=chi, dtype=torch.complex64)
+    layer_fn = tt.make_layer_fn(tt.BatchedCircuit(layer, g, spec=spec),
+                                chi=chi, cutoff=1e-10)
+    row = [(3, c) for c in range(1, 6)]
+    pairs = [(row[0], v) for v in row[1:]]
+    z = tt.op_matrix("Z", 2)
+    corr_fn = tp.make_path_correlation_fn(spec, pairs, z, connected=True,
+                                          real_output=True)
+    got = []
+    for _ in range(steps):
+        state, _ = layer_fn(state)
+        got.append(corr_fn(state).numpy())
+    np.testing.assert_allclose(np.array(got), corr_ref, atol=1e-4)
+    bmps_pairs = pairs + [(row[0], (r, 3)) for r in (4, 5)]
+    bmps = tp.make_grid_bmps_correlations(spec, 5, 5, kmps=2 * chi,
+                                          pairs=bmps_pairs, real_output=True)
+    np.testing.assert_allclose(
+        bmps(state.tensors, torch.as_tensor(_Z), torch.as_tensor(_Z)).numpy(),
+        bmps_ref, atol=1e-4)
+
+
+def test_torch_example_disorder_ensemble(capsys):
+    """examples/disorder_ensemble.py (3×3, χ=2, 2 layers, 3 realizations):
+    the disorder-averaged ⟨Z⟩ per layer, from the example's own numpy
+    draws of fields and couplings."""
+    nx = ny = 3
+    chi, n_layers, n_ens, dt, seed = 2, 2, 3, 0.1, 0
+    zbar_ref = _example("disorder_ensemble").main(
+        nx=nx, ny=ny, chi=chi, n_layers=n_layers, n_ensemble=n_ens)
+
+    g = tt.named_grid((nx, ny))
+    spec, s0 = tt.batched_product_state(g, chi=chi, dtype=torch.complex64)
+    _, layer = tp.make_field_layer_fn(g, chi=chi, spec=spec, bp_maxiter=20)
+    elayer = tp.ensemble_fn(layer)
+    expect_z = tp.make_ensemble_expectation_fn(spec, tt.op_matrix("Z", 2),
+                                               real_output=True)
+    V, E = spec.num_vertices, len(spec.edges)
+    rng = np.random.default_rng(seed)
+    site = torch.as_tensor(2 * dt * rng.uniform(0.5, 1.5, (n_ens, V)),
+                           dtype=torch.float32)
+    bond = torch.as_tensor(2 * dt * rng.uniform(0.8, 1.2, (n_ens, E)),
+                           dtype=torch.float32)
+    estate = tp.stack_states([s0] * n_ens)
+    zbar = []
+    for _ in range(n_layers):
+        estate, _ = elayer(estate, site, bond)
+        zbar.append(float(expect_z(estate).mean()))
+    np.testing.assert_allclose(zbar, zbar_ref, atol=1e-4)
+    capsys.readouterr()

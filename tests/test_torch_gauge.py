@@ -49,8 +49,12 @@ def test_measurement_modules_import_without_jax():
     mods = tuple(f"parallel.{m}" for m in (
         "gauge", "truncate", "overlap", "sampling", "correlations",
         "boundarymps", "certified_sampling", "loopcorrection",
-        "variational")) + ("utils.checks", "measure", "native")
-    code = "import sys\n" + "".join(
+        "variational")) + ("utils.checks", "measure", "native") + tuple(
+        f"engines.{m}" for m in ("mps", "boundarymps", "loopcorrection",
+                                 "diagnostics", "contract")) + (
+        "truncate", "sampling", "api", "utils.checkpoint",
+        "utils.profiling", "utils.lattices")
+    code = "import sys\nimport tensornetworkquantumsimulator_torch\n" + "".join(
         f"import tensornetworkquantumsimulator_torch.{m}\n"
         for m in mods) + (
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

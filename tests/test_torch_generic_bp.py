@@ -167,8 +167,10 @@ def test_tree_converges_in_one_sweep(name):
 
 
 def test_flat_network_and_contract_dispatch():
-    """A flat network (no site legs): BP and exact contraction through
-    ``contract``, against JAX; the unported backends raise."""
+    """A flat network (no site legs): exact, BP and boundary-MPS
+    contraction through ``contract``, against JAX; ``"loopcorrections"`` is
+    no backend of ``contract`` in either package, and the loop series on a
+    BP cache matches JAX's."""
     gj = j_lat.named_grid((2, 3))
     tn_j = tnqs.random_tensornetwork(jnp.float64, gj, bond_dimension=2,
                                      key=jax.random.PRNGKey(2))
@@ -177,9 +179,19 @@ def test_flat_network_and_contract_dispatch():
     for alg in ("exact", "bp"):
         np.testing.assert_allclose(tt.contract(tn_t, alg=alg),
                                    tnqs.contract(tn_j, alg=alg), rtol=1e-10)
-    for alg in ("boundarymps", "loopcorrections"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tt.contract(tn_t, alg=alg, mps_bond_dimension=4)
+    for rank in (1, 2, 4):
+        np.testing.assert_allclose(
+            tt.contract(tn_t, alg="boundarymps", mps_bond_dimension=rank),
+            tnqs.contract(tn_j, alg="boundarymps", mps_bond_dimension=rank),
+            rtol=1e-10)
+    for pkg, tn in ((tt, tn_t), (tnqs, tn_j)):
+        with pytest.raises(ValueError, match="unknown contraction alg"):
+            pkg.contract(tn, alg="loopcorrections")
+    np.testing.assert_allclose(
+        tt.loopcorrected_partitionfunction(
+            tt.BeliefPropagationCache(tn_t).update(), 6),
+        tnqs.loopcorrected_partitionfunction(
+            tnqs.BeliefPropagationCache(tn_j).update(), 6), rtol=1e-10)
 
 
 def test_carry_across_round_trip_and_ids():

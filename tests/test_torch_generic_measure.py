@@ -3,8 +3,8 @@
 data: ``expect``, ``norm``/``norm_sqr``, ``inner``, ``pauli_expectation``,
 ``heisenberg_expectation``, ``purity`` and ``rdm`` with the "exact" and "bp"
 backends; ``normalize``, the symmetric gauge and ``entanglement``; BP ⟨Z⟩
-on the 3×3 TFIM against the dense-statevector oracle; and the backends
-that are not ported yet, which must raise rather than answer with BP."""
+on the 3×3 TFIM against the dense-statevector oracle; and the
+"boundarymps" and "loopcorrections" backends on the same states."""
 
 import sys
 from pathlib import Path
@@ -200,17 +200,29 @@ def test_bp_z_against_dense_oracle():
 
 @pytest.mark.parametrize("alg", ["boundarymps", "loopcorrections"])
 def test_unported_backends_raise(alg):
-    psi_j, psi_t = _pair()
+    """The backends the first half of the engine left out now answer, as
+    JAX does on the same state (they raised ``NotImplementedError`` until
+    they were ported); an unknown backend still raises ``ValueError``."""
+    psi_j, psi_t = _pair(shape=(2, 3))
+    # ϕ: ψ on bonds of its own (the loop series of both packages needs
+    # the bra's bonds apart from the ket's), scaled, so ⟨ψ|ϕ⟩ = 1.5⟨ψ|ψ⟩
+    # and BP converges on it as on the norm network
+    phi_j = psi_j.map_virtualinds(lambda i: i.sim()).map_tensors(
+        lambda t: t * 1.5 ** (1 / 6))
+    phi_t = state_from_numpy(_plain(phi_j))
     kw = dict(mps_bond_dimension=4, max_configuration_size=4)
-    calls = [lambda: tt.expect(psi_t, ("Z", [(1, 1)]), alg=alg, **kw),
-             lambda: tt.norm_sqr(psi_t, alg=alg, **kw),
-             lambda: tt.norm(psi_t, alg=alg, **kw),
-             lambda: tt.inner(psi_t, psi_t, alg=alg, **kw)]
+    calls = ["expect", "norm_sqr", "norm", "inner"]
     if alg == "boundarymps":
-        calls.append(lambda: tt.rdm(psi_t, [(1, 1)], alg=alg, **kw))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+        calls.append("rdm")
+    for name in calls:
+        args_j = {"expect": ([("Z", [(1, 1)]), ("XX", [(2, 1), (2, 2)])],),
+                  "inner": (phi_j,), "rdm": ([(1, 1)],)}.get(name, ())
+        args_t = tuple(phi_t if a is phi_j else a for a in args_j)
+        got = getattr(tt, name)(psi_t, *args_t, alg=alg, **kw)
+        ref = getattr(tnqs, name)(psi_j, *args_j, alg=alg, **kw)
+        if name == "rdm":
+            got, ref = got.numpy(), np.asarray(ref.data)
+        np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
     with pytest.raises(ValueError):
         tt.expect(psi_t, ("Z", [(1, 1)]), alg="nonsense")
 

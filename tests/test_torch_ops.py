@@ -36,6 +36,7 @@ def _pair(rng, shapes, complex_=True):
         j = jo.Index(d, tags=(name,))
         jinds[name] = j
         tinds[name] = to.Index(d, tags=(name,), id=j.id)
+        t_index.reserve_ids(j.id)  # later port ids never reuse it
 
     def arr(*names):
         shape = tuple(shapes[n] for n in names)
@@ -244,3 +245,30 @@ def test_qr_factor_finite_on_denormal_columns():
     assert Q.dtype == torch.complex64
     assert torch.isfinite(Q.data).all() and torch.isfinite(R.data).all()
     np.testing.assert_allclose((Q * R).numpy((i, j)), a, atol=1e-7)
+
+
+def test_free_bases_follow_the_reference():
+    """Where a factorization may pick its basis, the port on the CPU picks
+    JAX's: the QR of the all-ones 4×2 strand a boundary MPS starts from
+    (rank 1: the second column is free, and torch's CPU QR returns another
+    one), and the SVD of a matrix with a doubly degenerate singular value.
+    On host tensors both packages call numpy's LAPACK, so the factors agree
+    entry for entry."""
+    rng = np.random.default_rng(5)
+    jinds, tinds, _ = _pair(rng, {"a": 4, "b": 2, "c": 3, "d": 3})
+    ones = np.ones((4, 2), np.complex128)
+    qj, rj = jo.qr_factor(jo.Tensor(ones, (jinds["a"], jinds["b"])),
+                          [jinds["a"]])
+    qt, rt = to.qr_factor(to.from_array(ones, (tinds["a"], tinds["b"])),
+                          [tinds["a"]])
+    np.testing.assert_allclose(qt.numpy(), np.asarray(qj.data), atol=1e-15)
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj.data), atol=1e-15)
+    u = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    m = u @ np.diag([2.0, 1.0, 1.0]) @ u.T  # σ = 2, 1, 1
+    xj, yj, sj, _, _ = jo.svd_truncated(
+        jo.Tensor(m, (jinds["c"], jinds["d"])), [jinds["c"]])
+    xt, yt, st, _, _ = to.svd_truncated(
+        to.from_array(m, (tinds["c"], tinds["d"])), [tinds["c"]])
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj.data), atol=1e-15)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj.data), atol=1e-14)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj.data), atol=1e-14)
