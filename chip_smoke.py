@@ -147,7 +147,35 @@ Phases, each printing its checks and seconds:
    and samples/s.  (e) ``truncate`` to χ=2 by "bp" and "boundarymps":
    fidelity and exact ⟨Z⟩ card against CPU.  (f) (a)'s state through
    ``save_state`` / ``load_state`` onto the card: equal tensors;
-16. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
+16. ``sharded``: the multi-device engine (``parallel/sharding.py`` and
+   the modules built on it), every shard on this one card, so the times
+   say nothing of scaling over cards.  (a) the chi32 configuration, 5x5
+   TFIM at χ=32 complex64 on the fast stack, one row a strip
+   (``shard_spec(g, 5)``), 3 layers of ``make_sharded_layer`` against the
+   unsharded ``make_layer_fn`` in the same colour-group order with the
+   kernels off: max site |dZ| <= 1e-4, K1 and K2 must launch, each kernel
+   against its plain version on the inputs the sharded layers gave it (as
+   in 3-4), no ``all_gather`` in a layer; the
+   ppermute calls and bytes of a layer, and ms per layer (CUDA events, 2
+   layers after one warm-up) unsharded, S=1 and S=5.  (b) 6x6 χ=32 in
+   (2, 2) blocks, 2 layers of ``make_sharded_layer_2d``, 1e-4.  (c)
+   heavy-hex (3, 3), V=68, χ=16 in 4 strips with ``TNQS_BP_KERNEL=1``, 2
+   layers, 1e-4, K3 must launch; (b) and (c) are held against the
+   unsharded layer and their kernels against their plain versions as (a)
+   is.  (d) on (a)'s state at the package
+   defaults, each sharded function against its single-device counterpart
+   on the gathered state: site and bond ⟨Z⟩, the gauge's spectra and ⟨Z⟩,
+   truncation (cutoff 1e-6) errors and ⟨Z⟩, the Loschmidt echo from the
+   product state and four path correlators, within 1e-5; the grid boundary
+   MPS at rank 16 (on the truncated state, its χ buffer cut to the bond
+   dimension it uses, checked to be zero beyond it) within 5e-5;
+   loop-corrected Z and three ⟨O⟩ at size 4 within 1e-4; the certified
+   sampler (on the truncated state) and the density-matrix sampler (on the
+   noisy phase's state) over 5 shards with the draws forced to the
+   single-device run's: equal bitstrings, logq / log p/q / logps within
+   5e-3; a sharded checkpoint round trip bit for bit.  Every reading is
+   printed before a bar is held;
+17. times: layers/s of chi10, chi64 and chi10_rolled with the kernels on
    and off (CUDA events, after warm-up), chi64 with K3 off / on / on / off;
    then each kernel on the batches of phase 2 that have the main path's
    shapes (K4: the microbenchmark's and [8,512,512]): its call time (host
@@ -170,7 +198,8 @@ generic engine.
 
 Each main path (chi10, chi64, rolled, ensemble, noisy, qr, microbench,
 measure, loops, variational and its no-grad energy, generic,
-generic_bmps) runs with every launch
+generic_bmps, sharded_chi32, sharded_2d, sharded_heavyhex) runs with
+every launch
 counter set to 0 just before it and read just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
@@ -2620,6 +2649,424 @@ def colour_groups(tt) -> None:
                       f"group: {sizes}; PYTHONHASHSEED {seed}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the multi-device engine, S shards timesharing cuda:0
+# ---------------------------------------------------------------------------
+
+# layers each sharded main path runs
+SHARDED_LAYERS = {"sharded_chi32": 3, "sharded_2d": 2, "sharded_heavyhex": 2}
+SHARD_CHI = 32  # (a), (b): the chi32 configuration's χ
+SHARD_HEX_CHI = 16  # (c)
+SHARD_BAND = 1e-4  # sharded layer vs unsharded, max site |dZ|
+SHARD_MEASURE_BAND = 1e-5  # readouts, gauge, truncate, echo, correlators
+SHARD_BMPS_RANK = 16
+SHARD_BMPS_BAND = 5e-5
+SHARD_LOOP_BAND = 1e-4
+SHARD_LOGQ_BAND = 5e-3
+SHARD_SAMPLES = 10  # per sampler call, split over the 5 shards
+SHARD_TRUNC_CUTOFF = 1e-6
+TFIM = dict(dt=0.25, hx=1.0, hz=0.8, J=0.5)  # bench.py:272-279
+
+
+def ordered_circuit(spec, one_site, two_site):
+    """A tuple circuit: the named 1-site gates ``one_site`` on every vertex,
+    then the named 2-site gate ``two_site`` on every edge in the spec's
+    colour groups and their order.  Each group's first gate touches a
+    vertex of the group before, or follows an identity gate where no gate
+    does, so ``BatchedCircuit`` splits its matchings exactly at the groups
+    (checked by :func:`unsharded_layer`)."""
+    verts = spec.vertices
+    circ = [(name, [v], a) for name, a in one_site for v in verts]
+    prev = set()
+    for group in spec.color_groups:
+        pairs = [(iu, iv) for b in group for iu, iv in zip(b.u_idx, b.v_idx)]
+        pairs.sort(key=lambda p: not (p[0] in prev or p[1] in prev))
+        if prev and not prev & set(pairs[0]):
+            circ.append(("I", [verts[pairs[0][0]]]))
+        circ += [(two_site[0], [verts[iu], verts[iv]], two_site[1])
+                 for iu, iv in pairs]
+        prev = {i for p in pairs for i in p}
+    return circ
+
+
+def layer_gates(tt, one_site, two_site):
+    """The same circuit as one uniform 1-site gate (the product of
+    ``one_site`` in order) and one 2-site gate, for the sharded layers."""
+    gate1 = np.eye(2, dtype=np.complex128)
+    for name, a in one_site:
+        gate1 = tt.gate_matrix(name, a) @ gate1
+    return tt.gate_matrix(*two_site).reshape(2, 2, 2, 2), gate1
+
+
+def unsharded_layer(tt, g, spec, one_site, two_site, chi, dev):
+    """The port's unsharded ``make_layer_fn`` on the same spec and Trotter
+    order as the sharded layer, with the bench's layer settings."""
+    bc = tt.BatchedCircuit(ordered_circuit(spec, one_site, two_site), g,
+                           spec=spec)
+    def edges(buckets):
+        return sorted((b.slot_u, b.slot_v, iu, iv) for b in buckets
+                      for iu, iv in zip(b.u_idx, b.v_idx))
+
+    groups = [edges(grp) for grp in spec.color_groups]
+    segs = [edges(s.buckets) for s in bc.segments if hasattr(s, "buckets")]
+    assert segs == groups, "circuit segments differ from the colour groups"
+    return tt.make_layer_fn(bc, chi=chi, cutoff=1e-10, normalize_tensors=True,
+                            bp_maxiter=25, device=dev)
+
+
+def sharded_layer_fn(tt, make, sspec, mesh, one_site, two_site, chi):
+    gate2, gate1 = layer_gates(tt, one_site, two_site)
+    return make(sspec, mesh, gate2, gate1, chi, cutoff=1e-10,
+                normalize_tensors=True, bp_maxiter=25)
+
+
+def sharded_vs_unsharded(tt, dev, counters, targets, cl, cb, name, g, sspec,
+                         mesh, make, one_site, two_site, chi, required, env):
+    """Run ``SHARDED_LAYERS[name]`` sharded layers under ``env`` (counted,
+    and recording what they hand each kernel) and as many unsharded ones
+    with the kernels off, from the same product state; returns (launches,
+    recorded kernel inputs, sharded state, max site |dZ|, ppermute calls /
+    bytes of the last layer, all_gather calls over the layers)."""
+    tp = tt.parallel
+    spec = sspec.spec
+    n = SHARDED_LAYERS[name]
+    z = tt.op_matrix("Z", 2)
+    with knobs(env):
+        _, psi0 = tt.batched_product_state(g, chi=chi, dtype=torch.complex64,
+                                           spec=spec, device=dev)
+        layer = sharded_layer_fn(tt, make, sspec, mesh, one_site, two_site,
+                                 chi)
+
+        def run():
+            st = mesh.shard(psi0)
+            mesh.traffic.reset()
+            gathers = 0
+            for _ in range(n):
+                snap = dict(mesh.traffic.calls), dict(mesh.traffic.bytes)
+                st, errs = layer(st)
+                gathers += mesh.traffic.calls["all_gather"] - snap[0].get(
+                    "all_gather", 0)
+            calls, moved = mesh.traffic.calls, mesh.traffic.bytes
+            last = (calls["ppermute"] - snap[0].get("ppermute", 0),
+                    moved["ppermute"] - snap[1].get("ppermute", 0))
+            torch.cuda.synchronize()
+            assert all(torch.isfinite(e).all() for e in errs)
+            return st, last, gathers
+
+        with recording(targets) as seen:
+            launches, (st, last, gathers) = counted(counters, name, required,
+                                                    run)
+        z_sh = tp.local_expectations(spec, mesh.gather(st), z).real
+    with knobs(KERNELS_OFF):
+        ref_fn = unsharded_layer(tt, g, spec, one_site, two_site, chi, dev)
+        ref = psi0
+        for _ in range(n):
+            ref, _ = ref_fn(ref)
+        z_un = tp.local_expectations(spec, ref, z).real
+    assert torch.isfinite(z_sh).all() and torch.isfinite(z_un).all()
+    dz = float((z_sh - z_un).abs().max())
+    return launches, seen, st, dz, last, gathers
+
+
+def layer_ms(fn, state, reps=2):
+    """ms per layer between CUDA events after one warm-up layer (host
+    dispatch and the BP stop tests' syncs included)."""
+    state, _ = fn(state)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        state, _ = fn(state)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def effective_bond(state) -> int:
+    """The largest bond index any tensor uses: the χ buffer beyond it holds
+    exact zeros after a truncation that kept a prefix of each spectrum."""
+    t = state.tensors
+    r = 1
+    for k in range(1, t.ndim - 1):
+        norms = torch.linalg.vector_norm(
+            torch.movedim(t, k, 0).reshape(t.shape[k], -1), dim=1)
+        r = max(r, int(torch.nonzero(norms).max()) + 1)
+    return r
+
+
+def compacted(tp, state, r):
+    """The state with its χ buffer cut to ``r`` (exact where the buffer
+    beyond r is zero; checked by the caller)."""
+    D = state.tensors.ndim - 2
+    t = state.tensors[(slice(None),) + (slice(0, r),) * D]
+    return tp.BatchedState(t.contiguous(),
+                           state.messages[..., :r, :r].contiguous())
+
+
+class ShardDraws:
+    """Replays recorded draws [n, calls] to a sharded sampler: each
+    shard's generator gets its own block of samples, one column per
+    call."""
+
+    def __init__(self, drawn, gens):
+        n = drawn.shape[0] // len(gens)
+        self.blocks = {id(g): drawn[s * n:(s + 1) * n]
+                       for s, g in enumerate(gens)}
+        self.calls = {id(g): 0 for g in gens}
+
+    def __call__(self, probs, generator=None):
+        k = id(generator)
+        out = self.blocks[k][:, self.calls[k]].to(probs.device)
+        self.calls[k] += 1
+        return out
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def sharded_phase(tt, dev, counters, targets, cl, cb, card, noisy):
+    """(a) chi32 in 5 strips, (b) 6x6 χ=32 in (2, 2) blocks, (c) heavy-hex
+    χ=16 in 4 strips with K3, each against the unsharded layer; (d) the
+    sharded measurements on (a)'s state against their single-device
+    counterparts.  Every shard lives on ``dev``.  Returns the launches per
+    counted path."""
+    tp = tt.parallel
+    from tensornetworkquantumsimulator_torch.parallel import (
+        certified_sampling as cert_mod,
+    )
+    from tensornetworkquantumsimulator_torch.parallel import (
+        sampling as smp_mod,
+    )
+    from tensornetworkquantumsimulator_torch.utils import checkpoint
+
+    paths = {}
+    dt, hx, hz, J = (TFIM[k] for k in ("dt", "hx", "hz", "J"))
+    tfim_one = [("Rx", 2 * hx * dt), ("Rz", 2 * hz * dt)]
+    tfim_two = ("Rzz", 2 * J * dt)
+
+    # (a) full width: the chi32 configuration, one row a strip, 5 shards
+    g = tt.named_grid((5, 5))
+    sspec = tp.shard_spec(g, 5)
+    spec = sspec.spec
+    mesh = tp.ShardMesh(5, devices=[dev] * 5)
+    paths["sharded_chi32"], seen, st_a, dz, (pp_calls, pp_bytes), gathers = (
+        sharded_vs_unsharded(tt, dev, counters, targets, cl, cb,
+                             "sharded_chi32", g, sspec, mesh,
+                             tp.make_sharded_layer, tfim_one, tfim_two,
+                             SHARD_CHI, ("K1", "K2"), FAST_STACK))
+    with knobs(FAST_STACK):
+        mesh1 = tp.ShardMesh(1, devices=[dev])
+        sspec1 = tp.shard_spec(g, 1)
+        assert sspec1.spec.vertices == spec.vertices
+        _, psi0 = tt.batched_product_state(g, chi=SHARD_CHI,
+                                           dtype=torch.complex64, spec=spec,
+                                           device=dev)
+        ms_un = layer_ms(unsharded_layer(tt, g, spec, tfim_one, tfim_two,
+                                         SHARD_CHI,
+                                         dev), psi0)
+        ms_1 = layer_ms(sharded_layer_fn(tt, tp.make_sharded_layer, sspec1,
+                                         mesh1, tfim_one, tfim_two, SHARD_CHI),
+                        mesh1.shard(psi0))
+        ms_5 = layer_ms(sharded_layer_fn(tt, tp.make_sharded_layer, sspec,
+                                         mesh, tfim_one, tfim_two, SHARD_CHI),
+                        mesh.shard(psi0))
+    log("sharded", f"(a) chi32 5x5 TFIM χ={SHARD_CHI} c64, 5 strips on "
+                   f"{dev}, "
+                   f"{SHARDED_LAYERS['sharded_chi32']} layers: launches "
+                   f"{paths['sharded_chi32']}; max site |dZ| vs unsharded "
+                   f"make_layer_fn, kernels off, {dz:.2e} (bar "
+                   f"{SHARD_BAND}); per layer {pp_calls} ppermute calls, "
+                   f"{pp_bytes} bytes; all_gather calls over the layers "
+                   f"{gathers}")
+    log("sharded", f"{card}: (a) ms per layer (CUDA events, 2 layers after "
+                   f"one warm-up): unsharded {ms_un:.1f}, S=1 {ms_1:.1f}, "
+                   f"S=5 {ms_5:.1f} (all 5 shards timeshare one card)")
+    check_recorded("sharded_chi32", seen, cl, cb)
+    del seen
+    assert dz <= SHARD_BAND, f"sharded (a): |dZ| {dz:.3e} > {SHARD_BAND}"
+    assert gathers == 0, f"sharded (a): {gathers} all_gather calls in layers"
+
+    # (b) blocks: 6x6 χ=32 in (2, 2) blocks
+    g6 = tt.named_grid((6, 6))
+    sspec2 = tp.shard2d_spec(g6, 2, 2)
+    mesh2 = tp.ShardMesh((2, 2), ("x", "y"), devices=[dev] * 4)
+    paths["sharded_2d"], seen2, _, dz2, (pp2, pb2), gathers2 = (
+        sharded_vs_unsharded(tt, dev, counters, targets, cl, cb,
+                             "sharded_2d", g6, sspec2, mesh2,
+                             tp.make_sharded_layer_2d, tfim_one, tfim_two,
+                             SHARD_CHI, ("K1", "K2"), FAST_STACK))
+    log("sharded", f"(b) 6x6 TFIM χ={SHARD_CHI} c64 in (2, 2) blocks, "
+                   f"{SHARDED_LAYERS['sharded_2d']} layers: launches "
+                   f"{paths['sharded_2d']}; max site |dZ| vs unsharded, kernels "
+                   f"off, "
+                   f"{dz2:.2e} (bar {SHARD_BAND}); last layer {pp2} ppermute "
+                   f"calls, {pb2} bytes; all_gather calls {gathers2}")
+    check_recorded("sharded_2d", seen2, cl, cb)
+    del seen2
+    assert dz2 <= SHARD_BAND and gathers2 == 0, f"sharded (b): |dZ| {dz2:.3e}"
+
+    # (c) degree 3 with K3 on: heavy-hex (3, 3), V = 68, in 4 strips, χ=16
+    gh = tt.heavy_hexagonal_lattice(3, 3)
+    sspec3 = tp.shard_spec(gh, 4)
+    mesh3 = tp.ShardMesh(4, devices=[dev] * 4)
+    k3_env = dict(FAST_STACK, TNQS_BP_KERNEL="1")
+    paths["sharded_heavyhex"], seen3, _, dz3, (pp3, pb3), gathers3 = (
+        sharded_vs_unsharded(tt, dev, counters, targets, cl, cb,
+                             "sharded_heavyhex", gh, sspec3, mesh3,
+                             tp.make_sharded_layer,
+                             [("Rx", 0.4)], ("Rzz", 2 * (3.14159 / 4)),
+                             SHARD_HEX_CHI,
+                             ("K3",), k3_env))
+    log("sharded", f"(c) heavy-hex (3, 3) V={sspec3.spec.num_vertices} "
+                   f"kicked Ising χ={SHARD_HEX_CHI} c64 in 4 strips, "
+                   f"TNQS_BP_KERNEL=1, "
+                   f"{SHARDED_LAYERS['sharded_heavyhex']} layers: launches "
+                   f"{paths['sharded_heavyhex']}; max site |dZ| vs unsharded, "
+                   f"kernels off, "
+                   f"{dz3:.2e} (bar {SHARD_BAND}); last layer {pp3} ppermute "
+                   f"calls, {pb3} bytes; all_gather calls {gathers3}")
+    check_recorded("sharded_heavyhex", seen3, cl, cb)
+    del seen3
+    assert dz3 <= SHARD_BAND and gathers3 == 0, f"sharded (c): |dZ| {dz3:.3e}"
+
+    # (d) measurement on (a)'s state, package defaults, each against its
+    # single-device counterpart on the same (gathered) state
+    t0 = time.perf_counter()
+    z, x = tt.op_matrix("Z", 2), tt.op_matrix("X", 2)
+    st = tp.make_sharded_bp_update(sspec, mesh, maxiter=100,
+                                   tolerance=1e-5)(st_a)
+    one = mesh.gather(st)
+    read = {}
+    read["site <Z>"] = (tp.make_sharded_site_expectations(sspec, mesh, z)(st),
+                        tp.local_expectations(spec, one, z))
+    read["bond <ZZ>"] = (tp.make_sharded_bond_expectations(sspec, mesh, z, z)(
+        st), tp.bond_expectations(spec, one, z, z))
+    st_g, spectra = tp.make_sharded_gauge(sspec, mesh)(st)
+    one_g, spectra1 = tp.batched_symmetric_gauge(spec, one)
+    read["gauge spectra"] = (spectra, spectra1)
+    read["gauge <Z>"] = (tp.make_sharded_site_expectations(sspec, mesh, z)(
+        st_g), tp.local_expectations(spec, one_g, z))
+    st_t, terrs = tp.make_sharded_truncate(sspec, mesh, SHARD_CHI,
+                                           cutoff=SHARD_TRUNC_CUTOFF)(st)
+    one_t, terrs1 = tp.batched_truncate(spec, one, SHARD_CHI,
+                                        cutoff=SHARD_TRUNC_CUTOFF)
+    e_sh = torch.sort(torch.cat(terrs))[0][-len(terrs1):]
+    read["truncate errors"] = (e_sh, torch.sort(terrs1)[0])
+    read["truncate <Z>"] = (tp.make_sharded_site_expectations(sspec, mesh, z)(
+        st_t), tp.local_expectations(spec, one_t, z))
+    _, psi0 = tt.batched_product_state(g, chi=SHARD_CHI, dtype=torch.complex64,
+                                       spec=spec, device=dev)
+    inner = tp.make_sharded_inner(sspec, mesh)
+    s0 = mesh.shard(psi0)
+    l01, p01 = inner(st, s0)
+    l00, _ = inner(s0, s0)
+    ltt, _ = inner(st, st)
+    echo_sh = torch.stack([l01 - 0.5 * l00 - 0.5 * ltt, p01])
+    echo_1 = torch.stack(list(tp.batched_loschmidt_echo(spec, psi0, one)))
+    read["echo (log|.|, phase)"] = (echo_sh, echo_1)
+    pairs = [((1, 1), (5, 5)), ((3, 1), (3, 5)), ((2, 2), (4, 3)),
+             ((1, 5), (5, 1))]
+    read["path <Z Z>"] = (
+        tp.make_sharded_path_correlations(sspec, mesh, pairs, z, z)(st),
+        tp.make_path_correlation_fn(spec, pairs, z, z)(one))
+    bars = {k: SHARD_MEASURE_BAND for k in read}
+
+    # BMPS and the certified sampler on the truncated state, its χ buffer
+    # cut to the bond dimension it uses (the rest is exact zeros)
+    r = effective_bond(one_t)
+    small = compacted(tp, one_t, r)
+    pad = small.tensors.new_zeros(one_t.tensors.shape)
+    pad[(slice(None),) + (slice(0, r),) * 4] = small.tensors
+    assert torch.equal(pad, one_t.tensors), "the χ buffer beyond r is not 0"
+    rmesh = tp.ShardMesh(5, ("r",), devices=[dev] * 5)
+    small_sh = mesh.shard(small)
+    bn, be = tp.make_sharded_grid_bmps(spec, 5, 5, rmesh,
+                                       kmps=SHARD_BMPS_RANK, niters=8)
+    un, ue = tp.make_grid_bmps(spec, 5, 5, kmps=SHARD_BMPS_RANK, niters=8)
+    read["grid BMPS <Z>"] = (be(small_sh, z), ue(small.tensors, z))
+    read["grid BMPS log|Z|"] = (bn(small_sh)[0], un(small.tensors)[0])
+    bars["grid BMPS <Z>"] = bars["grid BMPS log|Z|"] = SHARD_BMPS_BAND
+
+    # loop corrections at size 4 on (a)'s state
+    zlc = tp.make_sharded_loopcorrections(sspec, mesh, g,
+                                          max_configuration_size=4)(st)
+    zlc1 = tp.loopcorrected_partitionfunction(spec, one, g,
+                                              max_configuration_size=4)
+    read["loop Z / Z (relative)"] = (zlc / zlc1 - 1,
+                                     torch.zeros((), device=dev))
+    obs = [("Z", [(3, 3)]), ("Z", [(1, 1)]), ("ZZ", [(2, 2), (2, 3)])]
+    read["loop-corrected <O>"] = (
+        tp.make_sharded_loopcorrected_expectations(sspec, mesh, g, obs, 4)(st),
+        tp.make_loopcorrected_expectations(spec, g, obs,
+                                           max_configuration_size=4)(one))
+    bars["loop Z / Z (relative)"] = bars["loop-corrected <O>"] = \
+        SHARD_LOOP_BAND
+
+    # the samplers split over the sample axis, draws forced to the
+    # single-device sampler's
+    smesh = tp.ShardMesh(5, ("s",), devices=[dev] * 5)
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in range(5)]
+    cert = tp.make_grid_certified_sampler(spec, 5, 5, norm_rank=CERT_RANK,
+                                          projected_rank=CERT_RANK)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with draws(cert_mod) as drawn:
+        cbits, clogq, clpq = cert(small.tensors, SHARD_SAMPLES, gen)
+    with patched(cert_mod, "_draw", ShardDraws(torch.stack(drawn, 1), gens)):
+        sbits, slogq, slpq = tp.make_sharded_sampler(cert, smesh)(
+            small.tensors, SHARD_SAMPLES, gens)
+    same_cert = torch.equal(sbits, cbits)
+    read["certified logq"] = (slogq, clogq)
+    read["certified log p/q"] = (slpq, clpq)
+    nspec, nstate = noisy
+    rho = tp.make_rho_sampler(nspec, nstate.chi, nstate.tensors.dtype)
+    with draws(smp_mod) as rdrawn:
+        rbits, rlogp = rho(nstate, SHARD_SAMPLES, gen)
+    with patched(smp_mod, "_draw", ShardDraws(torch.stack(rdrawn, 1), gens)):
+        sr_bits, sr_logp = tp.make_sharded_rho_sampler(rho, smesh)(
+            nstate, SHARD_SAMPLES, gens)
+    same_rho = torch.equal(sr_bits, rbits)
+    read["rho sampler logps"] = (sr_logp, rlogp)
+    for k in ("certified logq", "certified log p/q", "rho sampler logps"):
+        bars[k] = SHARD_LOGQ_BAND
+
+    # a sharded checkpoint round trip, bit for bit
+    ckpt = REPO / "build" / f"sharded_ckpt_{os.getpid()}"
+    checkpoint.save_sharded_state(str(ckpt), st, mesh)
+    back = checkpoint.load_sharded_state(str(ckpt), mesh)
+    same_ckpt = all(torch.equal(a.tensors, b.tensors)
+                    and torch.equal(a.messages, b.messages)
+                    for a, b in zip(back.shards, st.shards))
+    import shutil
+
+    shutil.rmtree(ckpt)
+    torch.cuda.synchronize()
+
+    errs = {k: float((a - b.to(a.device)).abs().max()) for k, (a, b) in
+            read.items()}
+    for k, e in errs.items():
+        log("sharded", f"(d) {k}: sharded vs single-device max |diff| "
+                       f"{e:.2e} (bar {bars[k]:g})")
+    log("sharded", f"(d) truncated state's bond dimension {r} of "
+                   f"{SHARD_CHI} (the "
+                   f"BMPS at rank {SHARD_BMPS_RANK} and the certified sampler "
+                   f"run on it); samplers: {SHARD_SAMPLES} samples over 5 "
+                   f"shards, bitstrings equal: certified {same_cert}, rho "
+                   f"{same_rho}; checkpoint round trip bit for bit: "
+                   f"{same_ckpt}; traffic {mesh.traffic}; phase (d) took "
+                   f"{time.perf_counter() - t0:.1f} s")
+    for k, e in errs.items():
+        assert e <= bars[k], f"sharded (d) {k}: {e:.3e} > {bars[k]}"
+    assert same_cert and same_rho and same_ckpt
+    return paths
+
+
 # layers each counted main path runs (the ensemble's of 8 members; the
 # measure path is one call of ``batched_truncate``)
 LAYERS = {"chi10": 5, "chi64": 2, "rolled": 10, "ensemble": ENSEMBLE_LAYERS,
@@ -2762,7 +3209,6 @@ def main() -> int:
         tt, dev, engine, counters, targets, cl, cb, card)
     eagle = measure_eagle(tt, dev, card)
     measure_noisy(tt, dev, noisy_spec, noisy_state, card)
-    del noisy_state
     done("measure")
 
     # 12-13. loop corrections on the measured states, the variational path
@@ -2782,9 +3228,15 @@ def main() -> int:
     paths["generic_bmps"], bmps_profiled = generic_bmps_phase(tt, dev,
                                                               counters, card)
     done("generic_bmps")
+
+    # 16. the multi-device engine, every shard on this card
+    paths.update(sharded_phase(tt, dev, counters, targets, cl, cb, card,
+                               (noisy_spec, noisy_state)))
+    del noisy_state
+    done("sharded")
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
 
-    # 15. times
+    # 17. times
     for name, n, on in (("chi10", 20, FAST_STACK),
                         ("chi64", 2, dict(FAST_STACK, TNQS_BP_KERNEL="1")),
                         ("chi10_rolled", 20, FAST_STACK)):
@@ -2923,7 +3375,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[k],
             "paths": {p: counts[k] for p, counts in paths.items()},
-            "per_layer": {p: paths[p][k] / n for p, n in LAYERS.items()},
+            "per_layer": {p: paths[p][k] / n for p, n in
+                          (LAYERS | SHARDED_LAYERS).items()},
             "max_abs_err": max(e["abs"] for e in entries),
             "max_rel_err": max(e["rel"] for e in entries),
             "compared": what[k],

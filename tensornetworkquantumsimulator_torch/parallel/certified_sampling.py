@@ -321,3 +321,33 @@ def _make_certified_sampler(
         return bits_all, logq, log_p - logq
 
     return sampler
+
+
+# ---------------------------------------------------------------------------
+# multi-device: the sample batch split over a mesh
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_sampler(sampler, mesh, axis: str = "s"):
+    """Run a certified sampler over the SAMPLE axis of a mesh.
+
+    Sampling is independent across draws, so the state is copied to every
+    shard and each shard draws and certifies its own block of ``nsamples
+    / S`` samples with its own ``torch.Generator`` (``generators``, one
+    per shard on its device; None: the default generators), with no
+    exchange between shards.  The strand-fitting preamble is recomputed
+    per shard.  The same draws give the same bits, logq and certificates
+    as the single-device sampler.  Returns ``sharded(tensors, nsamples,
+    generators=None) -> (bits, logq, log_poverq)`` on the mesh's first
+    device, shard 0's block first."""
+    from .sampling import _split_samples
+
+    del axis  # one sample axis: the mesh's shards in order
+
+    def sharded(tensors, nsamples: int, generators=None):
+        n, gens = _split_samples(mesh, nsamples, generators)
+        outs = [sampler(t, n, g)
+                for t, g in zip(mesh.broadcast(tensors), gens)]
+        return tuple(mesh.collect([o[k] for o in outs]) for k in range(3))
+
+    return sharded

@@ -579,3 +579,113 @@ def make_mutual_information_fn(
         return entropy(rho_a) + entropy(rho_b) - entropy(rho_ab)
 
     return mutual_information
+
+
+def make_sharded_path_correlations(
+    sspec,
+    mesh,
+    pairs: Sequence[tuple],
+    op1,
+    op2=None,
+    *,
+    paths: Sequence[tuple[list, list]] | None = None,
+    connected: bool = False,
+    real_output: bool = False,
+    axis: str = "v",
+) -> Callable:
+    """Path correlators on the sharded state: ``fn(sstate) -> [len(pairs)]``
+    on the mesh's first device.
+
+    Same semantics as :func:`make_path_correlation_fn`, on a
+    ``sharding.ShardedBPSpec`` strip sharding.  A path's transfer matrix
+    needs only its OWN vertex's tensor and incoming messages, so no halo
+    exchange is needed: each shard builds the χ²×χ² transfer entries and
+    endpoint χ²-vectors it owns (slot-pattern buckets, per-shard tables),
+    ONE ``psum`` per table assembles it (entries are zero off their owner
+    shard), and the cheap matvec chain runs once.  The state itself never
+    gathers (reference semantics: `expect.jl:58-83`)."""
+    from .sharding import check_mesh
+
+    check_mesh(sspec, mesh, axis)
+    spec = sspec.spec
+    S = sspec.num_shards
+    Vl = spec.num_vertices // S
+    op1 = np.asarray(op1)
+    op2 = op1 if op2 is None else np.asarray(op2)
+    P = len(pairs)
+    paths, a_buckets, b_buckets, int_buckets, tab_t, n_int = (
+        _build_path_tables(spec, pairs, paths)
+    )
+
+    def shard_tables(buckets):
+        """``{key: [(dest, vertex)]}`` → per shard ``[(key, local idx,
+        dest idx)]`` of device tensors, for the entries the shard owns."""
+        out = []
+        for s, dev in enumerate(mesh.devices):
+            own = {k: [(d, v % Vl) for d, v in e if v // Vl == s]
+                   for k, e in buckets.items()}
+            out.append(_bucket_tensors({k: e for k, e in own.items() if e},
+                                       dev))
+        return out
+
+    a_tabs, b_tabs = shard_tables(a_buckets), shard_tables(b_buckets)
+    i_tabs = shard_tables(int_buckets)
+    dev0 = mesh.devices[0]
+    chain = _long(tab_t, dev0)
+
+    def corr_fn(sstate):
+        shards = sstate.shards
+        chi = shards[0].chi
+        chi2 = chi * chi
+        cdtype = shards[0].tensors.dtype
+
+        def endpoints(tabs, op):
+            parts = []
+            for s, st in enumerate(shards):
+                dev = st.tensors.device
+                o = _as_op(op, cdtype, dev)
+                v = torch.zeros((2, P, chi2), dtype=cdtype, device=dev)
+                for slot, idx, pos in tabs[s]:
+                    e = _site_transfer(st, idx, slot)
+                    v[0, pos] = torch.einsum("bopsz,zs->bop", e, o).reshape(
+                        -1, chi2)
+                    v[1, pos] = torch.einsum("bopss->bop", e).reshape(-1, chi2)
+                parts.append(v)
+            return mesh.psum(parts, axis)[0]  # [2, P, χ²]
+
+        m = endpoints(a_tabs, op1)
+        vb = endpoints(b_tabs, op2)
+        parts = []
+        for s, st in enumerate(shards):
+            T = torch.zeros((n_int, chi2, chi2), dtype=cdtype,
+                            device=st.tensors.device)
+            for (sp, sn), idx, pos in i_tabs[s]:
+                mats = _site_transfer2(st, idx, sp, sn).reshape(-1, chi2, chi2)
+                scale = mats.abs().amax(dim=(1, 2), keepdim=True)
+                T[pos] = mats / torch.where(scale == 0, torch.ones_like(scale),
+                                            scale)
+            parts.append(T)
+        T = torch.cat([mesh.psum(parts, axis)[0],
+                       torch.eye(chi2, dtype=cdtype, device=dev0)[None]])
+        for idxs in chain:
+            m = torch.einsum("kpi,pij->kpj", m, T[idxs])
+        vals = torch.einsum("kpi,kpi->kp", m, vb)
+        out = vals[0] / vals[1]
+        return out.real if real_output else out
+
+    if not connected:
+        return corr_fn
+
+    from .sharded_layer import make_sharded_site_expectations
+
+    ia = _long([verts[0] for verts, _ in paths], dev0)
+    ib = _long([verts[-1] for verts, _ in paths], dev0)
+    site1 = make_sharded_site_expectations(sspec, mesh, op1, axis=axis)
+    site2 = make_sharded_site_expectations(sspec, mesh, op2, axis=axis)
+
+    def connected_fn(sstate):
+        out = corr_fn(sstate)
+        sub = site1(sstate)[ia] * site2(sstate)[ib]
+        return out - (sub.real if real_output else sub)
+
+    return connected_fn

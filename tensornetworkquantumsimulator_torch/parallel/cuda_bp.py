@@ -96,7 +96,7 @@ def bp_outgoing_d3(t: torch.Tensor, messages: torch.Tensor) -> torch.Tensor:
     partial = torch.empty((splits, chunk, chi, chi), dtype=t.dtype,
                           device=t.device)
     cuda_build.launch(
-        "tnqs_bp_outgoing_d3", t.data_ptr(), messages.data_ptr(),
+        "tnqs_bp_outgoing_d3", t.device, t.data_ptr(), messages.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
         V, chi, d, chunk, splits,
     )

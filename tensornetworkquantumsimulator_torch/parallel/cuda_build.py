@@ -152,18 +152,22 @@ def library() -> ctypes.CDLL:
 _entries: dict = {}  # name -> bound C function, looked up once
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point on PyTorch's current stream; raise on a
-    non-zero ``cudaGetLastError`` (a refused launch never runs, and a
-    later synchronize would not report it).  After the first call the
-    bound function is a dictionary lookup, with no lock: at small shapes
-    the host path is the cost of a call."""
+def launch(name: str, device, *args) -> None:
+    """Call one C entry point on ``device`` (the device of the data it is
+    handed), on PyTorch's current stream there; raise on a non-zero
+    ``cudaGetLastError`` (a refused launch never runs, and a later
+    synchronize would not report it).  The launch goes to the data's
+    card even when another card is current, as for a shard on a second
+    card.  After the first call the bound function is a dictionary
+    lookup, with no lock: at small shapes the host path is the cost of a
+    call."""
     import torch
 
     fn = _entries.get(name)
     if fn is None:
         fn = _entries[name] = getattr(library(), name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = library().tnqs_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -163,7 +163,7 @@ def jacobi_pseudo_roots(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
     root = torch.empty_like(h)
     inv_root = torch.empty_like(h)
     cuda_build.launch(
-        "tnqs_jacobi_pseudo_roots", h.data_ptr(), root.data_ptr(),
+        "tnqs_jacobi_pseudo_roots", h.device, h.data_ptr(), root.data_ptr(),
         inv_root.data_ptr(), _sweeps_ptr(sweeps, B, h.device), B, n,
         max_sweeps,
     )
@@ -182,7 +182,8 @@ def _launch_eigh(h: torch.Tensor, max_sweeps: int, polish: bool, sweeps):
     w = torch.empty((B, n), dtype=torch.float32, device=h.device)
     v = torch.empty_like(h)
     cuda_build.launch(
-        "tnqs_jacobi_eigh", h.data_ptr(), w.data_ptr(), v.data_ptr(),
+        "tnqs_jacobi_eigh", h.device, h.data_ptr(), w.data_ptr(),
+        v.data_ptr(),
         _sweeps_ptr(sweeps, B, h.device), B, n, max_sweeps, int(polish),
     )
     eigh_launches.count += 1

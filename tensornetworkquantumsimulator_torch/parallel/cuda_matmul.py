@@ -72,7 +72,7 @@ def complex_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = a.resolve_conj().contiguous()
     if b.is_conj() or not b.is_contiguous():
         b = b.resolve_conj().contiguous()
-    cuda_build.launch("tnqs_complex_matmul", a.data_ptr(), b.data_ptr(),
-                      c.data_ptr(), B, N, K, M)
+    cuda_build.launch("tnqs_complex_matmul", a.device, a.data_ptr(),
+                      b.data_ptr(), c.data_ptr(), B, N, K, M)
     matmul_launches.count += 1
     return c

@@ -745,6 +745,72 @@ def _fused_color_group(state, buckets, gate, chi, cutoff, normalize_tensors):
     return BatchedState(tensors, messages), torch.cat(errs)
 
 
+def _bucket_updates(state, items, gate, chi, cutoff, normalize_tensors):
+    """The simple update of a colour group's buckets on gathered endpoint
+    data (``items`` as for :func:`_fused_group_core`): one stacked update
+    across the buckets, or one per bucket with ``TNQS_FUSE_BUCKETS=0`` (as
+    :func:`apply_color_group`).  Returns ``[(tu_new, tv_new, msg, err)]``
+    in bucket order."""
+    if os.environ.get("TNQS_FUSE_BUCKETS", "1") != "0" and len(items) > 1:
+        return _fused_group_core(state, items, gate, chi, cutoff,
+                                 normalize_tensors)
+    return [_simple_update_core(tu, tv, mu, mv, gate, su, sv, chi, cutoff,
+                                normalize_tensors)
+            for (su, sv, tu, tv, mu, mv) in items]
+
+
+def _select_rows(old, new, inv, wr):
+    """Write-back without scatter: ``old[p] <- new[inv[p]] where wr[p]``.
+
+    ``torch.where`` is an exact select, so every row carries either its
+    exact old bits or the exact new lane."""
+    m = wr.reshape(wr.shape + (1,) * (old.ndim - 1))
+    return torch.where(m, new[inv].to(old.dtype), old)
+
+
+def apply_color_group_masked(
+    state: BatchedState,
+    slot_pairs,  # tuple of (slot_u, slot_v) per canonical bucket
+    tables,  # per bucket: dict of index tensors u_tab/v_tab [B], valid [B],
+    #          u_inv/u_wr/v_inv/v_wr [V] (inverse-select write-back)
+    gate: torch.Tensor,
+    chi: int,
+    cutoff: float,
+    normalize_tensors: bool = True,
+):
+    """Colour-group apply with index tables passed as tensors, the
+    reference's body of a layer that scans over colour groups.  Canonical
+    buckets are padded to a uniform per-group shape: pad rows gather vertex
+    0, compute garbage, and write nothing back (:func:`_select_rows`);
+    their errors read 0.  Same update as :func:`apply_color_group`
+    (:func:`_bucket_updates`); only the gather and the write-back differ.
+    (``make_layer_fn(scan_groups=True)`` runs the unrolled layer: this is
+    the entry point for callers holding such tables.)"""
+    items = []
+    for (slot_u, slot_v), tb in zip(slot_pairs, tables):
+        u_idx, v_idx = tb["u_tab"], tb["v_tab"]
+        items.append((
+            slot_u, slot_v,
+            state.tensors[u_idx], state.tensors[v_idx],
+            state.messages[u_idx], state.messages[v_idx],
+        ))
+    results = _bucket_updates(state, items, gate, chi, cutoff,
+                              normalize_tensors)
+    tensors, messages = state.tensors, state.messages.clone()
+    errs = []
+    for (slot_u, slot_v), tb, (tu_new, tv_new, msg, err) in zip(
+        slot_pairs, tables, results
+    ):
+        tensors = _select_rows(tensors, tu_new, tb["u_inv"], tb["u_wr"])
+        tensors = _select_rows(tensors, tv_new, tb["v_inv"], tb["v_wr"])
+        messages[:, slot_u] = _select_rows(messages[:, slot_u], msg,
+                                           tb["u_inv"], tb["u_wr"])
+        messages[:, slot_v] = _select_rows(messages[:, slot_v], msg,
+                                           tb["v_inv"], tb["v_wr"])
+        errs.append(torch.where(tb["valid"], err, torch.zeros_like(err)))
+    return BatchedState(tensors, messages), torch.cat(errs)
+
+
 # ---------------------------------------------------------------------------
 # batched local expectation values
 # ---------------------------------------------------------------------------

@@ -194,3 +194,43 @@ def make_rho_sampler(
         return torch.stack(configs, dim=1), logp
 
     return sampler
+
+
+def _split_samples(mesh, nsamples: int, generators):
+    """Per-shard sample counts and generators of a sampler sharded over
+    the sample axis."""
+    S = mesh.num_shards
+    if nsamples % S != 0:
+        raise ValueError(f"{nsamples} samples not divisible by {S} shards")
+    if generators is None:
+        generators = [None] * S
+    if len(generators) != S:
+        raise ValueError(f"{len(generators)} generators for {S} shards")
+    return nsamples // S, list(generators)
+
+
+def make_sharded_rho_sampler(sampler, mesh, axis: str = "s"):
+    """Run a :func:`make_rho_sampler` sampler over the SAMPLE axis of a
+    mesh — the density-matrix counterpart of
+    ``certified_sampling.make_sharded_sampler``.
+
+    Draws are independent, so every shard draws its own block of
+    ``nsamples / S`` samples from a copy of the (replicated) state, with
+    its own ``torch.Generator`` (``generators``, one per shard on its
+    device; None: the default generators), and recomputes the initial
+    sandwich fixed point itself.  The same draws give the same bitstrings
+    and logps as the single-device sampler.  Returns ``sharded(state,
+    nsamples, generators=None) -> (bitstrings [n, V], logps [n])`` on the
+    mesh's first device, shard 0's block first."""
+    del axis  # one sample axis: the mesh's shards in order
+
+    def sharded(state: BatchedState, nsamples: int, generators=None):
+        n, gens = _split_samples(mesh, nsamples, generators)
+        t = mesh.broadcast(state.tensors)
+        m = mesh.broadcast(state.messages)
+        outs = [sampler(BatchedState(ti, mi), n, g)
+                for ti, mi, g in zip(t, m, gens)]
+        return (mesh.collect([o[0] for o in outs]),
+                mesh.collect([o[1] for o in outs]))
+
+    return sharded

@@ -1,10 +1,9 @@
 """PyTorch port, the public surface: the names of the port's root,
-``utils`` and ``parallel`` equal the JAX package's, less only what the
-sharded engine brings (not ported yet) and plus a stated list of the
-port's own; the reference's export list resolves; and the ``api.py``
-delegates behave as the JAX package's do."""
+``utils`` and ``parallel`` equal the JAX package's, less only
+``shard_map_novma`` (a switch of JAX's own checker, not ported) and plus a
+stated list of the port's own; the reference's export list resolves; and
+the ``api.py`` delegates behave as the JAX package's do."""
 
-import re
 import types
 
 import numpy as np
@@ -21,11 +20,11 @@ from tensornetworkquantumsimulator_tpu import utils as ju
 
 torch.set_num_threads(1)
 
-# what the multi-device (sharded) engine brings: not ported yet
-_SHARDED = re.compile(r"^(make_sharded_.*|shard_spec|shard2d_spec|Sharded.*Spec"
-                      r"|sharding.*|sharded_.*|build_layer_groups)$")
-# the port's own names: device selection, and names the batched port
-# re-exports one level up
+# JAX's names with no counterpart in the port
+_NOT_PORTED = {"shard_map_novma"}
+# the port's own names: device selection, names the batched port
+# re-exports one level up, and the sharded engine's device mesh, sharded
+# state and traffic counter
 _PORT_ONLY = {
     "root": {"BatchedCircuit", "BatchedState", "batched_product_state",
              "bp_update", "compile_graph", "gate_matrix",
@@ -37,8 +36,9 @@ _PORT_ONLY = {
                  "bond_rdms", "edge_scalars",
                  "energy", "graph_tables", "identity_strand", "loop_weights",
                  "loopcorrected_partitionfunction", "rescale",
-                 "sandwich_logz", "sandwich_sweeps", "state_from_numpy",
-                 "state_to_numpy", "vertex_scalars"},
+                 "sandwich_logz", "sandwich_sweeps", "ShardMesh",
+                 "ShardedState", "state_from_numpy", "state_to_numpy",
+                 "Traffic", "vertex_scalars"},
 }
 
 
@@ -61,10 +61,10 @@ def _names(m):
                                          ("utils", ju, tu),
                                          ("parallel", jp, tp)])
 def test_public_names_equal_jax_less_sharded(where, jm, tm):
-    want = {n for n in _names(jm) if not _SHARDED.match(n)}
+    want = _names(jm) - _NOT_PORTED
     assert _names(tm) - _PORT_ONLY[where] == want
     assert _PORT_ONLY[where] <= _names(tm)
-    assert not any(_SHARDED.match(n) for n in _names(tm))
+    assert not _NOT_PORTED & _names(tm)
 
 
 def test_all_lists_jax_names():

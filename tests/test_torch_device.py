@@ -14,6 +14,7 @@ import torch
 
 import tensornetworkquantumsimulator_torch as tt
 from tensornetworkquantumsimulator_torch import devices
+from tensornetworkquantumsimulator_torch.utils import checkpoint
 
 torch.set_num_threads(1)
 
@@ -80,10 +81,19 @@ def _load_batched_state(**kw):
         return tt.load_batched_state(path, **kw).tensors
 
 
+def _load_sharded_state(**kw):
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sharded")
+        checkpoint.save_sharded_state(
+            path, tt.batched_product_state(_grid(), chi=2, device="cpu")[1])
+        return checkpoint.load_sharded_state(path, **kw).tensors
+
+
 # each entry point, returning one tensor of what it built
 _ENTRY_POINTS = {
     "load_state": _load_state,
     "load_batched_state": _load_batched_state,
+    "load_sharded_state": _load_sharded_state,
     "batched_product_state": _state,
     "state_from_numpy": _from_numpy,
     "make_layer_fn": _layer,

@@ -689,3 +689,88 @@ def test_torch_example_disorder_ensemble(capsys):
         zbar.append(float(expect_z(estate).mean()))
     np.testing.assert_allclose(zbar, zbar_ref, atol=1e-4)
     capsys.readouterr()
+
+
+def test_torch_example_sharded_dynamics(capsys, monkeypatch):
+    """examples/sharded_dynamics.py on 4 shards (JAX: 4 of its virtual CPU
+    devices; the port: a ``ShardMesh`` of 4 ``cpu`` shards), 2 layers at
+    χ=2, complex64: per-layer truncation error and centre ⟨Z⟩, mean ⟨ZZ⟩,
+    the largest bond entropy, the truncation error, the sharded boundary-MPS
+    log|Z|, the loop-correction factor and the padded Eagle-127 ⟨Z⟩."""
+    import jax
+
+    n_layers, chi, S = 2, 2, 4
+    devices = jax.devices()
+    monkeypatch.setattr(jax, "devices", lambda *a: devices[:S])
+    _example("sharded_dynamics").main(n_layers=n_layers, chi=chi)
+    out = capsys.readouterr().out
+    num = r"([-+]?[\d.]+(?:e[-+]?\d+)?)"
+    ref_layers = [tuple(map(float, m)) for m in re.findall(
+        rf"max trunc err {num}  <Z>center {num}", out)]
+    ref_zz = float(re.search(rf"<ZZ> over \d+ edges: mean {num}", out)[1])
+    ref_ent = float(re.search(rf"edges: max {num}", out)[1])
+    ref_trunc = float(re.search(rf"truncate: max err {num}", out)[1])
+    ref_lz = float(re.search(rf"\(unnormalized\): {num}", out)[1])
+    ref_lc = complex(re.search(r"series\): (\S+)", out)[1])
+    ref_eagle = float(re.search(rf"127 qubits {num}", out)[1])
+
+    nx, ny = S, 4
+    g = tt.named_grid((nx, ny))
+    sspec = tp.shard_spec(g, S)
+    spec = sspec.spec
+    mesh = tp.ShardMesh(S)
+    _, state = tp.batched_product_state(g, chi=chi, spec=spec)
+    state = mesh.shard(state)
+    dt, hx, J = 0.25, 1.0, 0.5
+    gate2 = tt.gate_matrix("Rzz", 2 * J * dt).reshape(2, 2, 2, 2)
+    gate1 = tt.gate_matrix("Rx", 2 * hx * dt)
+    layer = tp.make_sharded_layer(sspec, mesh, gate2, gate1, chi=chi,
+                                  cutoff=1e-12, bp_maxiter=25)
+    z = tt.op_matrix("Z", 2)
+    site_fn = tp.make_sharded_site_expectations(sspec, mesh, z)
+    bond_fn = tp.make_sharded_bond_expectations(sspec, mesh, z, z)
+    centre = spec.vertex_position((nx // 2, ny // 2))
+    for l in range(n_layers):
+        state, errs = layer(state)
+        zs = site_fn(state).real.numpy()
+        err = float(torch.cat(errs).max())
+        assert err == pytest.approx(ref_layers[l][0], abs=1e-6)
+        assert zs[centre] == pytest.approx(ref_layers[l][1], abs=1e-5)
+    assert float(bond_fn(state).real.mean()) == pytest.approx(ref_zz,
+                                                              abs=1e-5)
+    state_g, spectra = tp.make_sharded_gauge(sspec, mesh)(state)
+    ent = spectra.numpy()
+    ent = ent / ent.sum(axis=1, keepdims=True)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sv = -np.nansum(np.where(ent > 0, ent * np.log(ent), 0.0), axis=1)
+    assert sv.max() == pytest.approx(ref_ent, abs=1e-4)
+    state_t, terrs = tp.make_sharded_truncate(sspec, mesh, chi=chi,
+                                              cutoff=1e-8)(state_g)
+    assert float(torch.cat(terrs).max()) == pytest.approx(ref_trunc, abs=1e-6)
+    rmesh = tp.ShardMesh(S, ("r",))
+    norm_fn, _ = tp.make_sharded_grid_bmps(spec, nx, ny, rmesh, kmps=4,
+                                           niters=3)
+    lz, _ = norm_fn(state_t)
+    assert float(lz) == pytest.approx(ref_lz, abs=1e-4)
+    zlc = complex(tp.make_sharded_loopcorrections(
+        sspec, mesh, g, max_configuration_size=4)(state_t))
+    zbp = complex(tp.make_sharded_loopcorrections(
+        sspec, mesh, g, max_configuration_size=3)(state_t))
+    assert abs(zlc / zbp - ref_lc) < 1e-6
+
+    g_eg = tt.ibm_eagle_lattice()
+    sspec_eg = tp.shard_spec(g_eg, S, pad=True)
+    _, st_eg = tp.batched_product_state(g_eg, chi=4, spec=sspec_eg.spec)
+    st_eg = mesh.shard(st_eg)
+    layer_eg = tp.make_sharded_layer(
+        sspec_eg, mesh,
+        tt.gate_matrix("Rzz", 2 * (3.14159 / 4)).reshape(2, 2, 2, 2),
+        tt.gate_matrix("Rx", 0.4), chi=4, cutoff=1e-12, bp_maxiter=25)
+    site_eg = tp.make_sharded_site_expectations(sspec_eg, mesh, z)
+    for _ in range(3):
+        st_eg, _ = layer_eg(st_eg)
+    zs_eg = site_eg(st_eg).real.numpy()
+    real_rows = [i for i, v in enumerate(sspec_eg.spec.vertices)
+                 if g_eg.has_vertex(v)]
+    assert len(real_rows) == 127
+    assert zs_eg[real_rows].mean() == pytest.approx(ref_eagle, abs=1e-5)

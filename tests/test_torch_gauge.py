@@ -49,7 +49,9 @@ def test_measurement_modules_import_without_jax():
     mods = tuple(f"parallel.{m}" for m in (
         "gauge", "truncate", "overlap", "sampling", "correlations",
         "boundarymps", "certified_sampling", "loopcorrection",
-        "variational")) + ("utils.checks", "measure", "native") + tuple(
+        "variational", "sharding", "sharded_layer", "sharding2d",
+        "sharded_bmps", "sharded_loopcorrection")) + (
+        "utils.checks", "measure", "native") + tuple(
         f"engines.{m}" for m in ("mps", "boundarymps", "loopcorrection",
                                  "diagnostics", "contract")) + (
         "truncate", "sampling", "api", "utils.checkpoint",

@@ -30,7 +30,18 @@ from tensornetworkquantumsimulator_torch.ops import paths as t_paths
 from tensornetworkquantumsimulator_tpu import native as j_native
 from tensornetworkquantumsimulator_tpu import ops as jo
 
+import native_prebuild
+
 torch.set_num_threads(1)
+
+# Every xdist worker collects this file before it runs a test: build the
+# JAX package's native libraries here, whole and under a file lock, so that
+# no worker's JAX loader finds one half-written.  A worker whose loader had
+# already failed on a half-written file (while collecting an earlier file)
+# is told to load the library again, now that it is complete.
+native_prebuild.prebuild()
+for _stem in native_prebuild.STEMS:
+    j_native._failed.discard(_stem)
 _REPO = Path(__file__).resolve().parents[1]
 _PORT = _REPO / "tensornetworkquantumsimulator_torch"
 
@@ -143,11 +154,19 @@ def _oe_dp_cost(inputs, dims):
     return float(info.opt_cost) / 2  # opt_einsum counts mul+add
 
 
+def _jax_native_loaded():
+    """Where g++ exists the JAX package's native DP must have loaded: a
+    comparison against its Python fallback would test the wrong search."""
+    if not native_prebuild.have_compiler():
+        pytest.skip("no C++ toolchain")
+    assert j_native.get_pathopt() is not None, (
+        "g++ exists but the JAX package's libpathopt.so did not load")
+
+
 def test_both_native_libraries_build_and_load():
     """The port's loader builds ``pathopt`` and ``subgraphs`` from ``csrc/``
     into ``build/native/``, never into the package."""
-    if j_native.get_pathopt() is None:
-        pytest.skip("no C++ toolchain")
+    _jax_native_loaded()
     for get, stem in ((t_native.get_pathopt, "pathopt"),
                       (t_native.get_subgraphs, "subgraphs")):
         assert get() is not None, stem
@@ -157,6 +176,7 @@ def test_both_native_libraries_build_and_load():
 
 @pytest.mark.parametrize("seed", range(6))
 def test_small_native_cases_equal_cost(seed):
+    _jax_native_loaded()
     rng = random.Random(7 + seed)
     for _ in range(5):
         inputs, dims = _random_net(rng, rng.randint(3, 10))
@@ -169,6 +189,7 @@ def test_small_native_cases_equal_cost(seed):
 
 
 def test_n48_ring_equal_cost():
+    _jax_native_loaded()
     cost_t, cost_j = _costs(*_ring(48))
     assert cost_t == pytest.approx(cost_j)
 
