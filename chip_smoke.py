@@ -118,7 +118,9 @@ Phases, each printing its checks and seconds:
    1e-5 relative in (b), and in (c) 1e-5 relative on the steps before the
    χ=8 cap binds and 1e-2 after it (from there the run amplifies rounding;
    a second CPU run on one thread prints the CPU's own spread), the times
-   side by side;
+   side by side.  (e) ``ops.linalg.eigendecomp_hermitian`` of a random
+   16x16 complex64 PSD matrix on the card: w and U diag(w) U^H within 1e-5
+   relative of the CPU's;
 15. ``generic_bmps``: the generic engine's second half, each check run
    again on the CPU in this process with times (CUDA events and the host
    clock) side by side.  The card factorizes with cuSOLVER, the CPU with
@@ -2043,7 +2045,7 @@ def thermal_example(tt, dev, steps=8, chi=8, dtau=0.05, h=1.0, J=1.0):
 
 
 def generic_phase(tt, dev, engine, counters, card):
-    """The generic engine on the card, (a)-(d); returns (launches of the
+    """The generic engine on the card, (a)-(e); returns (launches of the
     counted (a) run, {name: (call, ms)} for the busy share)."""
     from tensornetworkquantumsimulator_torch import native
     from tensornetworkquantumsimulator_torch import parallel as tp
@@ -2184,6 +2186,28 @@ def generic_phase(tt, dev, engine, counters, card):
                    f"(bond below the cap) within 1e-5, all within 1e-2; "
                    f"{t_therm:.1f} s on the card, {t_therm_cpu:.1f} s on the "
                    f"CPU")
+
+    # (e) ops.linalg.eigendecomp_hermitian on the card against the CPU, on
+    # a random 16x16 complex64 PSD matrix
+    from tensornetworkquantumsimulator_torch.ops import linalg as ops_linalg
+
+    gen = torch.Generator().manual_seed(16)
+    b = torch.randn(16, 16, dtype=torch.complex64, generator=gen)
+    i = tt.Index(16)
+    eig = {}
+    for where in (dev, "cpu"):
+        m = tt.ops.from_array((b @ b.mH).to(where), (i, i.prime()))
+        u, w, odt = ops_linalg.eigendecomp_hermitian(m, regularization=0.0)
+        assert odt == torch.complex64 and u.device == w.device == m.device, (
+            f"generic: (e) eigendecomp_hermitian on {u.device}, {odt}")
+        eig[where] = (w, (u * w.to(u.dtype)) @ u.mH)
+    r_w = rel_err(eig[dev][0], eig["cpu"][0])
+    r_m = rel_err(eig[dev][1], eig["cpu"][1])
+    log("generic", f"(e) eigendecomp_hermitian 16x16 complex64 PSD on "
+                   f"{eig[dev][0].device}: w {r_w:.2e}, U diag(w) U^H "
+                   f"{r_m:.2e} relative to the CPU's (bar 1e-5)")
+    assert max(r_w, r_m) <= 1e-5, (
+        f"generic: (e) eigendecomp_hermitian card vs CPU {r_w:.3e} {r_m:.3e}")
     return launches, {"generic chi10 layer": (one_layer, layer_ms)}
 
 

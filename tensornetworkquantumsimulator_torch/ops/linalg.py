@@ -184,6 +184,15 @@ def eigh_tensor(t: Tensor):
     return w, u, orig_dtype
 
 
+def eigendecomp_hermitian(m: Tensor, regularization=0.0):
+    """Return ``(U, w, orig_dtype)`` with M = U diag(w) U†, as arrays in 64
+    bits on ``m``'s device, and ``regularization`` added to the real
+    eigenvalues ``w``.  Used by the symmetric gauge
+    (`symmetric_gauge.jl:12-20`)."""
+    w, u, orig_dtype = eigh_tensor(m)
+    return u, w + regularization, orig_dtype
+
+
 def pseudo_sqrt_inv_sqrt(m: Tensor, cutoff=None):
     """(√M, 1/√M) of a hermitian 2-index environment, zeroing tiny/negative
     eigenvalues (reference `pseudo_sqrt_inv_sqrt`, `utils.jl:18-26`).

@@ -108,6 +108,17 @@ def _chol_once(mat: torch.Tensor):
     return q, ell.mH
 
 
+def _householder_qr(mat: torch.Tensor):
+    """The library QR of a batch.  A 32-bit batch on the CPU is factorized
+    in 64 bits and cast back: MKL's complex64 QR returns NaN on columns
+    holding denormal entries, where XLA's stays finite."""
+    if mat.device.type != "cpu" or _is_x64(mat):
+        return torch.linalg.qr(mat)
+    wide = torch.complex128 if mat.is_complex() else torch.float64
+    q, r = torch.linalg.qr(mat.to(wide))
+    return q.to(mat.dtype), r.to(mat.dtype)
+
+
 def _qr_split(mat: torch.Tensor):
     alg = os.environ.get("TNQS_QR_ALG", "default")
     if alg == "cholqr1":
@@ -117,7 +128,7 @@ def _qr_split(mat: torch.Tensor):
         q, m2 = _chol_once(q1)
         return q, m2 @ m1
     if alg != "polar":
-        return torch.linalg.qr(mat)
+        return _householder_qr(mat)
     q1, m1 = _polar_once(mat)
     q, m2 = _polar_once(q1)
     return q, m2 @ m1

@@ -1,10 +1,16 @@
 """PyTorch port, the public surface: the names of the port's root,
 ``utils`` and ``parallel`` equal the JAX package's, less only
 ``shard_map_novma`` (a switch of JAX's own checker, not ported) and plus a
-stated list of the port's own; the reference's export list resolves; and
-the ``api.py`` delegates behave as the JAX package's do."""
+stated list of the port's own; module by module, every public function and
+class of a JAX module, every public method of its classes and every
+argument name, is in the module's counterpart, less a stated list of
+exceptions; the reference's export list resolves; and the ``api.py``
+delegates behave as the JAX package's do."""
 
+import importlib
+import inspect
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -65,6 +71,138 @@ def test_public_names_equal_jax_less_sharded(where, jm, tm):
     assert _names(tm) - _PORT_ONLY[where] == want
     assert _PORT_ONLY[where] <= _names(tm)
     assert not _NOT_PORTED & _names(tm)
+
+
+J_PKG, T_PKG = tnqs.__name__, tt.__name__
+
+
+def _module_names(pkg) -> list:
+    """Every ``.py`` module of a package, dotted below it (``""`` is the
+    package itself; ``native/`` is a package in JAX, a module in the port,
+    and both import as ``native``)."""
+    root = Path(importlib.import_module(pkg).__file__).parent
+    names = []
+    for f in sorted(root.rglob("*.py")):
+        parts = f.relative_to(root).with_suffix("").parts
+        names.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                              else parts))
+    return names
+
+
+# a Pallas module's counterpart is the CUDA module that holds the kernel
+_COUNTERPART = {"parallel.pallas_linalg": "parallel.cuda_linalg",
+                "parallel.pallas_bp": "parallel.cuda_bp",
+                "parallel.pallas_kernels": "parallel.cuda_matmul"}
+
+_PALLAS_ARGS = ("Pallas' tiling, interpret mode and polish switches; the "
+                "CUDA kernel has its own launch shape")
+_KEY = ("a JAX PRNG key; the port draws from a torch.Generator "
+        "(`generator`)")
+_PYTREE = "a JAX pytree hook; a torch tensor needs none"
+# what of a JAX module's public surface its counterpart leaves out, each
+# with its reason: "module:name", "module:Class.method" or "module:name(arg)"
+_SURFACE_EXCEPTIONS = {
+    "parallel.sharding:shard_map_novma":
+        "a switch of JAX's varying-manual-axes checker, no counterpart",
+    "parallel.pallas_linalg:default_sweeps":
+        "the reference kernels' fixed sweep count; the port's stop each "
+        "matrix on a convergence test",
+    "parallel.pallas_linalg:jacobi_eigh(block)": _PALLAS_ARGS,
+    "parallel.pallas_linalg:jacobi_eigh(interpret)": _PALLAS_ARGS,
+    "parallel.pallas_linalg:jacobi_eigh(polish)": _PALLAS_ARGS,
+    "parallel.pallas_linalg:jacobi_pseudo_roots(block)": _PALLAS_ARGS,
+    "parallel.pallas_linalg:jacobi_pseudo_roots(interpret)": _PALLAS_ARGS,
+    "parallel.pallas_linalg:jacobi_pseudo_roots(polish)": _PALLAS_ARGS,
+    "parallel.pallas_bp:bp_outgoing_d3(interpret)": _PALLAS_ARGS,
+    "parallel.pallas_kernels:complex_matmul(interpret)": _PALLAS_ARGS,
+    "ops.tensor:random_tensor(key)": _KEY,
+    "models.tensornetwork:random_tensornetwork(key)": _KEY,
+    "models.tensornetwork:random_tensornetworkstate(key)": _KEY,
+    "ops.tensor:Tensor.tree_flatten": _PYTREE,
+    "ops.tensor:Tensor.tree_unflatten": _PYTREE,
+    "utils.checkpoint:load_sharded_state(sharding)":
+        "a JAX sharding; the port's shards live on a ShardMesh (`mesh`)",
+    "models.gates:to_tensor(dtype)":
+        "the JAX function accepts it and never reads it; the port's third "
+        "argument is `device`",
+}
+
+
+def _own_public(mod) -> dict:
+    """The public functions and classes a module defines itself (jitted
+    functions keep their module)."""
+    return {n: o for n, o in vars(mod).items()
+            if not n.startswith("_") and callable(o)
+            and getattr(o, "__module__", None) == mod.__name__}
+
+
+def _arg_names(f):
+    """The argument names a caller can write (``*args``/``**kwargs`` name
+    none); None where there is no signature."""
+    try:
+        params = inspect.signature(f).parameters.values()
+    except (TypeError, ValueError):
+        return None
+    return [p.name for p in params
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _public_methods(cls, pkg) -> dict:
+    """Public attributes the package's own classes in ``cls``'s MRO define
+    (inherited ones from ``tuple`` or ``object`` are no part of it)."""
+    out = {}
+    for k in reversed(cls.__mro__):
+        if k.__module__.split(".")[0] == pkg:
+            out.update({n: o for n, o in vars(k).items()
+                        if not n.startswith("_")})
+    return out
+
+
+def _surface_gaps(name) -> list:
+    """What of JAX module ``name``'s public surface its counterpart lacks,
+    as keys of ``_SURFACE_EXCEPTIONS``."""
+    jm = importlib.import_module(".".join(filter(None, (J_PKG, name))))
+    tm = importlib.import_module(
+        ".".join(filter(None, (T_PKG, _COUNTERPART.get(name, name)))))
+    gaps = []
+
+    def args(key, jf, tf):
+        ja, ta = _arg_names(jf), _arg_names(tf)
+        if ja is not None and ta is not None:
+            gaps.extend(f"{key}({a})" for a in ja if a not in ta)
+
+    for n, jo in sorted(_own_public(jm).items()):
+        key = f"{name}:{n}"
+        if not hasattr(tm, n):
+            gaps.append(key)
+            continue
+        to = getattr(tm, n)
+        args(key, jo, to)
+        if not inspect.isclass(jo):
+            continue
+        for mn, jmeth in sorted(_public_methods(jo, J_PKG).items()):
+            if not hasattr(to, mn):
+                gaps.append(f"{key}.{mn}")
+            elif callable(getattr(jo, mn)):
+                args(f"{key}.{mn}", getattr(jo, mn), getattr(to, mn))
+    return gaps
+
+
+@pytest.mark.parametrize("name", _module_names(J_PKG),
+                         ids=lambda n: n or "root")
+def test_module_surface_matches_jax(name):
+    """The JAX module's public functions and classes, its classes' public
+    methods and every argument name are in the port's counterpart, less
+    the stated exceptions."""
+    gaps = [g for g in _surface_gaps(name) if g not in _SURFACE_EXCEPTIONS]
+    assert gaps == []
+
+
+def test_surface_exceptions_are_live():
+    """Every stated exception names something JAX has and the port lacks."""
+    modules = {k.split(":")[0] for k in _SURFACE_EXCEPTIONS}
+    live = {g for m in modules for g in _surface_gaps(m)}
+    assert set(_SURFACE_EXCEPTIONS) <= live
 
 
 def test_all_lists_jax_names():

@@ -242,7 +242,9 @@ def test_pseudo_roots_match_jax_complex128(monkeypatch):
                                         (np.complex128, 1e-12)])
 def test_default_qr_split_padded_and_equal_columns(dtype, tol, monkeypatch):
     """With no ``TNQS_QR_ALG`` the split is ``torch.linalg.qr`` of the whole
-    batch, as the reference's default (engine.py:120).  Its inputs on the
+    batch, as the reference's default (engine.py:120), on a 32-bit CPU
+    batch in 64 bits and cast back (MKL's complex64 QR returns NaN on
+    denormal columns).  Its inputs on the
     layer path are tall and carry zero-padded bond columns; it must give a
     finite Q·R = A with upper-triangular R on zero-padded, equal-column and
     all-zero members (on the card, batches of small square complex matrices
@@ -257,7 +259,8 @@ def test_default_qr_split_padded_and_equal_columns(dtype, tol, monkeypatch):
     a[3] = 0.0
     at = torch.from_numpy(a)
     q, r = te._qr_split(at)
-    q_ref, r_ref = torch.linalg.qr(at)
+    q_ref, r_ref = torch.linalg.qr(at.to(torch.complex128))
+    q_ref, r_ref = q_ref.to(at.dtype), r_ref.to(at.dtype)
     assert torch.equal(q, q_ref) and torch.equal(r, r_ref)
     q, r = _np(q), _np(r)
     assert np.isfinite(q).all() and np.isfinite(r).all()

@@ -14,8 +14,10 @@ import torch
 from tensornetworkquantumsimulator_torch import set_default_device
 from tensornetworkquantumsimulator_torch import ops as to
 from tensornetworkquantumsimulator_torch.ops import index as t_index
+from tensornetworkquantumsimulator_torch.ops import linalg as t_linalg
 from tensornetworkquantumsimulator_torch.ops.tensor import combiner
 from tensornetworkquantumsimulator_tpu import ops as jo
+from tensornetworkquantumsimulator_tpu.ops import linalg as j_linalg
 
 torch.set_num_threads(1)
 
@@ -225,11 +227,10 @@ def test_pseudo_sqrt_and_eigh(dtype, tol):
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=tol * scale)
 
 
-def test_qr_factor_finite_on_denormal_columns():
-    """A complex64 matrix from the Heisenberg-picture example (4×4, χ=4):
-    its columns hold denormal entries, and torch's complex64 QR on the CPU
-    returned NaN on it (MKL, torch 2.11 and 2.13).  The split runs in 64
-    bits and stays finite and exact."""
+def _denormal_block() -> np.ndarray:
+    """A complex64 8×4 matrix from the Heisenberg-picture example (4×4,
+    χ=4): its columns hold denormal entries, and torch's complex64 QR on
+    the CPU returns NaN on it (MKL, torch 2.11 and 2.13)."""
     entries = {(0, 0): 0.9928538799285889, (0, 1): 7.226066040181576e-27,
                (0, 2): -2.381445348155465e-26, (0, 3): -1.0725076382556153e-10,
                (1, 0): 5.13089049632024e-34, (2, 0): 1.401298464324817e-45,
@@ -240,11 +241,70 @@ def test_qr_factor_finite_on_denormal_columns():
     a = np.zeros((8, 4), np.complex64)
     for ij, v in entries.items():
         a[ij] = v
+    return a
+
+
+def test_qr_factor_finite_on_denormal_columns():
+    """The generic engine's QR split of the denormal block runs in 64 bits
+    and stays finite and exact."""
+    a = _denormal_block()
     i, j = to.Index(8), to.Index(4)
     Q, R = to.qr_factor(to.from_array(a, (i, j)), [i])
     assert Q.dtype == torch.complex64
     assert torch.isfinite(Q.data).all() and torch.isfinite(R.data).all()
     np.testing.assert_allclose((Q * R).numpy((i, j)), a, atol=1e-7)
+
+
+def test_batched_qr_split_finite_on_denormal_columns():
+    """The batched engine's default QR split (no ``TNQS_QR_ALG``) of the
+    denormal block, alone and in a batch: finite, exact, and |diag R| equal
+    to JAX's complex64 QR, which stays finite on it."""
+    from tensornetworkquantumsimulator_torch.parallel import engine as t_eng
+    from tensornetworkquantumsimulator_tpu.parallel import engine as j_eng
+
+    a = _denormal_block()
+    rng = np.random.default_rng(6)
+    other = (rng.normal(size=(8, 4)) + 1j * rng.normal(size=(8, 4)))
+    for batch in (a[None], np.stack([other.astype(np.complex64), a])):
+        q, r = t_eng._qr_split(torch.from_numpy(batch))
+        assert q.dtype == r.dtype == torch.complex64
+        assert torch.isfinite(q).all() and torch.isfinite(r).all()
+        np.testing.assert_allclose((q @ r).numpy(), batch, atol=1e-6)
+        _, jr = j_eng._qr_split(batch)
+        np.testing.assert_allclose(
+            np.abs(np.diagonal(r.numpy(), axis1=-2, axis2=-1)),
+            np.abs(np.diagonal(np.asarray(jr), axis1=-2, axis2=-1)),
+            atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.complex128, 1e-10),
+                                       (np.complex64, 1e-5)])
+def test_eigendecomp_hermitian_matches_jax(dtype, tol):
+    """``eigendecomp_hermitian`` against JAX's on the same hermitian PSD
+    input: the eigenvalues with the regularization added, and the
+    gauge-free reconstruction U·diag(w)·U†."""
+    rng = np.random.default_rng(7)
+    n = 6
+    B = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+    M = (B @ B.conj().T).astype(dtype)
+    i = to.Index(n)
+    ji = jo.Index(n, id=i.id)
+    tm = to.from_array(M, (i, i.prime()))
+    jm = jo.Tensor(M, (ji, ji.prime()))
+    scale = np.abs(M).max()
+    for reg in (0.0, 0.25):
+        u, w, odt = t_linalg.eigendecomp_hermitian(tm, regularization=reg)
+        ju, jw, _ = j_linalg.eigendecomp_hermitian(jm, regularization=reg)
+        assert odt == tm.dtype and w.dtype == torch.float64
+        assert u.device == tm.data.device
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw),
+                                   atol=tol * scale)
+        un, ju_ = u.numpy(), np.asarray(ju)
+        rec = (un * (w.numpy() - reg)) @ un.conj().T
+        jrec = (ju_ * (np.asarray(jw) - reg)) @ ju_.conj().T
+        np.testing.assert_allclose(rec, jrec, atol=tol * scale)
+        np.testing.assert_allclose(rec, M, atol=tol * scale)
+    assert not hasattr(to, "eigendecomp_hermitian")  # as in JAX's ops
 
 
 def test_free_bases_follow_the_reference():

@@ -111,29 +111,91 @@ def test_layer_traffic_equals_jax_program(fresh, jax_layer):
     assert calls["psum"] == refreshes
 
 
-def test_layer_matches_jax_complex64(fresh):
-    """The same layer, both packages in complex64 with 10 BP sweeps per
-    refresh: gauge-free outputs within 1e-4.  The sweep count is fixed
-    (tolerance 0): a stop test at complex64's default tolerance is a float
-    compare that either package may decide one sweep apart, and one sweep
-    moves ⟨Z⟩ here by ~2e-4."""
-    jss, tss, t, m = fresh
+@pytest.fixture(scope="module")
+def fresh_converged():
+    """The state of ``fresh`` with JAX's BP fixed point as its messages."""
+    return sc.strip_case("grid4x4", S, CHI, seed=11, converge=True)
+
+
+# The layer's BP stops when the mean fidelity distance between two sweeps
+# is at most the tolerance (reference `sharding.py:307-319`).  In complex64
+# that distance is a float32 sum of 1 − |⟨a,b⟩|²/(‖a‖²‖b‖²) terms and
+# resolves nothing below ~1e-7: once the messages change by less than
+# ~3e-4 it reads noise of either sign, so at tolerance 0 each package
+# stops at the first sweep whose noise reads ≤ 0, one to four sweeps
+# before ``bp_maxiter``, and which sweep that is follows the rounding of
+# the colour-group order (the hash seed).  The skipped sweeps move ⟨Z⟩ by
+# up to ~1.7e-4.  A negative tolerance runs every refresh to
+# ``bp_maxiter`` in both packages.
+_F32_EPS = float(np.finfo(np.float32).eps)
+# the "stop_test" bar on ⟨Z⟩ against JAX's complex128 layer, in units of
+# the band the test measures: over hash seeds 0-63 the port's complex64
+# layer read at most 1.11 bands from it and JAX's 1.12 (seed 18), so the
+# bar has 2.2× headroom over the worst seed (`sharded_cases.py`'s
+# `layer_readings`, run once per seed)
+_STOP_BAND_FACTOR = 2.5
+
+
+@pytest.mark.parametrize("case", ["stop_test", "fixed_sweeps",
+                                  "fixed_sweeps_converged"])
+def test_layer_matches_jax_complex64(case, fresh, fresh_converged):
+    """The layer in complex64 in both packages, 10 BP sweeps at most per
+    refresh; the truncation errors within 1e-4 of JAX's.
+
+    ``stop_test`` (tolerance 0, so the complex64 stop test decides, see
+    above): ⟨Z⟩ within ``_STOP_BAND_FACTOR`` × the band of JAX's
+    complex128 layer, the distance between that layer run to 10 sweeps and
+    stopped where a float32 distance loses resolution (tolerance ε32).
+    ``fixed_sweeps`` / ``fixed_sweeps_converged`` (every refresh runs its
+    10 sweeps, from identity messages / from the BP fixed point): the two
+    complex64 layers compute the same function, ⟨Z⟩ within 1e-5."""
+    jss, tss, t, m = fresh_converged if case.endswith("converged") else fresh
     t64, m64 = t.astype(np.complex64), m.astype(np.complex64)
-    gate2, gate1 = sc.gates(np.complex64)
-    bp = dict(bp_maxiter=10, bp_tolerance=0.0)
+    tol = 0.0 if case == "stop_test" else -1.0
     jmesh = sc.j_mesh((S,))
-    jout, jerrs = jp.make_sharded_layer(jss, jmesh, gate2, gate1, CHI,
-                                        cutoff=1e-12, **bp)(
-        sc.j_sharded(t64, m64, jmesh))
+
+    def jax_layer(dtype, tolerance):
+        gate2, gate1 = sc.gates(dtype)
+        out, errs = jp.make_sharded_layer(
+            jss, jmesh, gate2, gate1, CHI, cutoff=1e-12, bp_maxiter=10,
+            bp_tolerance=tolerance)(
+            sc.j_sharded(t.astype(dtype), m.astype(dtype), jmesh))
+        return np.asarray(jp.local_expectations(jss.spec, out, Z)), errs
+
+    zj, jerrs = jax_layer(np.complex64, tol)
+    gate2, gate1 = sc.gates(np.complex64)
     mesh = tp.ShardMesh(S)
     out, errs = tp.make_sharded_layer(tss, mesh, gate2, gate1, CHI,
-                                      cutoff=1e-12, **bp)(
+                                      cutoff=1e-12, bp_maxiter=10,
+                                      bp_tolerance=tol)(
         sc.port_sharded(mesh, t64, m64))
     assert out.tensors[0].dtype == torch.complex64
     np.testing.assert_allclose(sc.to_np(errs), np.asarray(jerrs), atol=1e-4)
-    zj = np.asarray(jp.local_expectations(jss.spec, jout, Z))
     zt = sc.to_np(t_sl.make_sharded_site_expectations(tss, mesh, Z)(out))
-    np.testing.assert_allclose(zt, zj, atol=1e-4)
+    if case != "stop_test":
+        np.testing.assert_allclose(zt, zj, atol=1e-5)
+        return
+    z128, _ = jax_layer(np.complex128, 0.0)
+    band = np.abs(jax_layer(np.complex128, _F32_EPS)[0] - z128).max()
+    assert band > 1e-5  # the early stop moves ⟨Z⟩ on this case
+    np.testing.assert_allclose(zt, z128, atol=_STOP_BAND_FACTOR * band)
+
+
+@pytest.mark.parametrize("hashseed", ["52", "61"])
+def test_layer_complex64_under_hash_seed(hashseed):
+    """The complex64 layer test in a fresh process under the hash seeds
+    that failed it while ⟨Z⟩ of the two complex64 layers at tolerance 0
+    was held to 1e-4 (1.52e-4 at both, alone, before the repair)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONHASHSEED=hashseed, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly", f"{__file__}::test_layer_matches_jax_complex64"],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("S_", [1, 2, 4])
