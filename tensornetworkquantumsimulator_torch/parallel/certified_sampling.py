@@ -42,6 +42,8 @@ from .boundarymps import (
     PlanarBMPSSpec,
     _fit_strand,
     _swap_up_down,
+    _log_sum,
+    _unit,
     identity_strand,
 )
 from .cuda_linalg import library_qr
@@ -67,10 +69,14 @@ def _single_truncate(strand: torch.Tensor, K: int):
     strand = torch.nn.functional.pad(strand, (0, D - B, 0, 0, 0, D - A))
 
     r = torch.eye(D, dtype=strand.dtype, device=strand.device).expand(S, D, D)
-    qs = []
+    # R is carried at unit norm, the norms taken off it in steps: a long
+    # strand's magnitude would otherwise underflow 32 bits (see sample_row)
+    qs, steps = [], []
     for c in range(W):
         t = torch.einsum("xab,xbpc->xapc", r, strand[:, c])
         q, r = library_qr(t.reshape(S, D * p, D))
+        r, step = _unit(r, 1)
+        steps.append(step)
         qs.append(q.reshape(S, D, p, D))
     qs[-1] = torch.einsum("xapb,xbc->xapc", qs[-1], r)
 
@@ -92,7 +98,8 @@ def _single_truncate(strand: torch.Tensor, K: int):
     safe = torch.where(norm == 0, torch.ones_like(norm), norm)
     ts[0] = torch.zeros_like(ts[0])
     ts[0][:, 0] = first / safe[:, None, None].to(first.dtype)
-    return torch.stack(ts, dim=1), torch.log(safe)
+    return torch.stack(ts, dim=1), (torch.log(safe.double())
+                                    + _log_sum(steps)).to(safe.dtype)
 
 
 def _e0_strand(S: int, W: int, K: int, chi: int, dtype, device):
@@ -115,15 +122,20 @@ def _push_projected(strand, row, K: int):
 
 def _close_projected(strand, row):
     """Contract the final (site-projected) row into the strand, pinning its
-    dummy down/right legs to index 0; returns the amplitudes [S]."""
+    dummy down/right legs to index 0; returns log |amplitude| [S] (the
+    carry kept at unit norm, its scale logged, as in _single_truncate)."""
     S, W, A, chi, B = strand.shape
     carry = torch.zeros((S, A, chi), dtype=strand.dtype, device=strand.device)
     carry[:, 0, 0] = 1.0
+    steps = []
     for c in range(W):
         # strand column (a, u, b); row column (u, d, l, rr) with d dummy
         x = torch.einsum("xal,xaub->xlub", carry, strand[:, c])
-        carry = torch.einsum("xlub,xulr->xbr", x, row[:, c, :, 0])
-    return carry[:, 0, 0]
+        carry, step = _unit(torch.einsum("xlub,xulr->xbr", x,
+                                         row[:, c, :, 0]), 1)
+        steps.append(step)
+    amp = carry[:, 0, 0].abs()
+    return (torch.log(amp.double() + 1e-30) + _log_sum(steps)).to(amp.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -255,12 +267,17 @@ def _make_certified_sampler(
         S = p_strand.shape[0]
         chi = row.shape[1]
         kp, kn = p_strand.shape[2], n_strand.shape[1]
-        # renvs[c] = environment of columns > c
+        # renvs[c] = environment of columns > c.  Each environment is kept
+        # at unit norm per sample: a column's conditional probabilities are
+        # read from them as ratios, so their scale is free, and without the
+        # rescaling a double-layer environment shrinks by about one site's
+        # |ψ|² per column and underflows 32 bits over a long row
         renvs = [None] * W
         renv = _env_init(S, kp, kn, chi, row.dtype, row.device)
         for c in range(W - 1, -1, -1):
             renvs[c] = renv
-            renv = _renv_step(renv, p_strand[:, c], n_strand[c], row[c])
+            renv, _ = _unit(_renv_step(renv, p_strand[:, c], n_strand[c],
+                                      row[c]), 1)
 
         lenv = _env_init(S, kp, kn, chi, row.dtype, row.device)
         logq = torch.zeros(S, dtype=row.real.dtype, device=row.device)
@@ -277,7 +294,7 @@ def _make_certified_sampler(
             q = probs.gather(1, bit[:, None])[:, 0]
             psip = (torch.movedim(psi_c, -1, 0)[bit]
                     / torch.sqrt(q).to(row.dtype)[:, None, None, None, None])
-            lenv = _lenv_step(lenv, p_c, n_c, psip)
+            lenv, _ = _unit(_lenv_step(lenv, p_c, n_c, psip), 1)
             logq = logq + torch.log(q)
             bits.append(bit)
             psps.append(psip)
@@ -299,8 +316,7 @@ def _make_certified_sampler(
                 strand, ln = _push_projected(strand, sel, kc)
                 log_amp = log_amp + ln
             else:
-                amp = _close_projected(strand, sel)
-                log_amp = log_amp + torch.log(amp.abs() + 1e-30)
+                log_amp = log_amp + _close_projected(strand, sel)
         return 2.0 * log_amp
 
     def sampler(tensors, nsamples: int, generator=None):

@@ -35,7 +35,9 @@ from .boundarymps import (
     PlanarBMPSSpec,
     _edge_scalar,
     _fit_strand,
-    _row_scalar,
+    _log_abs,
+    _row_scalar_scaled,
+    _scaled_ratio,
     _swap_up_down,
     identity_strand,
 )
@@ -163,10 +165,10 @@ def _make_sharded_bmps_fns(
         up, dn, recv_up, bound_dn = strands(rows)
         parts = []
         for s in range(S):
-            vals = torch.stack([_row_scalar(rows[s][j], up[s][j], dn[s][j])
-                                for j in range(Rl)])
-            log_z = torch.log(vals.abs()).sum()
-            phase = torch.angle(vals).sum()
+            vals = [_row_scalar_scaled(rows[s][j], up[s][j], dn[s][j])
+                    for j in range(Rl)]
+            log_z = torch.stack([_log_abs(v) for v in vals]).sum()
+            phase = torch.angle(torch.stack([v for v, _ in vals])).sum()
             edges = [_edge_scalar(up[s][j + 1], dn[s][j])
                      for j in range(Rl - 1)]
             if s > 0:  # the interface below this shard's first row
@@ -187,11 +189,11 @@ def _make_sharded_bmps_fns(
             o = torch.as_tensor(op).to(dtype=rows[s][0].dtype,
                                        device=mesh.devices[s])
             for j in range(Rl):
-                denom = _row_scalar(rows[s][j], up[s][j], dn[s][j])
-                num = torch.stack([
-                    _row_scalar(rows[s][j], up[s][j], dn[s][j], op=o,
-                                op_col=c) for c in range(W)])
-                outs.append((num / denom).real)
+                denom = _row_scalar_scaled(rows[s][j], up[s][j], dn[s][j])
+                num = torch.stack([_scaled_ratio(_row_scalar_scaled(
+                    rows[s][j], up[s][j], dn[s][j], op=o, op_col=c), denom)
+                    for c in range(W)])
+                outs.append(num.real)
         return mesh.collect([x[None] for x in outs]).reshape(nrows, W)
 
     return norm_sqr_fn, expect_rowcol_fn

@@ -18,10 +18,10 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "tnqs-trace"):
+def trace(log_dir: str = "/tmp/tnqs-trace"):
     """Profile the region; on exit write ``log_dir/trace.json`` (open it in
-    Perfetto or chrome://tracing).  Yields the ``torch.profiler.profile``
-    object, whose ``key_averages()`` tabulates the region."""
+    Perfetto or chrome://tracing).  Yields ``log_dir``, as the JAX
+    package's ``trace`` does."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -29,7 +29,7 @@ def trace(log_dir: str = "tnqs-trace"):
     prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
-        yield prof
+        yield log_dir
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

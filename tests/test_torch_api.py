@@ -128,6 +128,12 @@ _SURFACE_EXCEPTIONS = {
 }
 
 
+# shared arguments whose default values differ between a JAX function and
+# its counterpart, each with its reason: "module:name(arg)" or
+# "module:Class.method(arg)"
+_DEFAULT_EXCEPTIONS: dict = {}
+
+
 def _own_public(mod) -> dict:
     """The public functions and classes a module defines itself (jitted
     functions keep their module)."""
@@ -271,3 +277,74 @@ def test_free_function_delegates():
     assert len(tt.virtualinds(psi, e)) == 1
     qf = tt.QuadraticForm(psi)
     assert tt.ket_network(qf) is qf.ket() and tt.graph(qf) == psi.graph()
+
+
+def _default(p):
+    """A parameter's default, comparable across the packages: a dtype by
+    its name (``jnp.complex64``, ``np.complex64`` and ``torch.complex64``
+    all read ``"complex64"``), a numpy or JAX scalar by its value."""
+    d = p.default
+    if isinstance(d, torch.dtype):
+        return ("dtype", str(d).split(".")[-1])
+    if isinstance(d, (type, np.dtype)) or type(d).__name__ == "_ScalarMeta":
+        try:
+            return ("dtype", np.dtype(d).name)
+        except TypeError:
+            return d
+    if isinstance(d, np.generic) or (hasattr(d, "shape") and d.shape == ()):
+        return np.asarray(d).item()
+    return d
+
+
+def _same(a, b) -> bool:
+    try:
+        return bool(np.all(np.asarray(a == b)))
+    except Exception:
+        return False
+
+
+def _default_gaps(name) -> list:
+    """The arguments both JAX module ``name`` and its counterpart take
+    whose default values differ, as keys of ``_DEFAULT_EXCEPTIONS``."""
+    jm = importlib.import_module(".".join(filter(None, (J_PKG, name))))
+    tm = importlib.import_module(
+        ".".join(filter(None, (T_PKG, _COUNTERPART.get(name, name)))))
+    gaps = []
+
+    def compare(key, jf, tf):
+        try:
+            jp_, tp_ = (inspect.signature(f).parameters for f in (jf, tf))
+        except (TypeError, ValueError):
+            return
+        for a, p in jp_.items():
+            if a in tp_ and not _same(_default(p), _default(tp_[a])):
+                gaps.append(f"{key}({a})")
+
+    for n, jo in sorted(_own_public(jm).items()):
+        if not hasattr(tm, n):
+            continue
+        to = getattr(tm, n)
+        compare(f"{name}:{n}", jo, to)
+        if not inspect.isclass(jo):
+            continue
+        for mn, jmeth in sorted(_public_methods(jo, J_PKG).items()):
+            if hasattr(to, mn) and callable(getattr(jo, mn)):
+                compare(f"{name}:{n}.{mn}", getattr(jo, mn), getattr(to, mn))
+    return gaps
+
+
+@pytest.mark.parametrize("name", _module_names(J_PKG),
+                         ids=lambda n: n or "root")
+def test_module_defaults_match_jax(name):
+    """Every argument a JAX module's function, class or method shares with
+    its counterpart in the port has the same default value there, less the
+    stated exceptions."""
+    gaps = [g for g in _default_gaps(name) if g not in _DEFAULT_EXCEPTIONS]
+    assert gaps == []
+
+
+def test_default_exceptions_are_live():
+    """Every stated default exception names a default that differs."""
+    modules = {k.split(":")[0] for k in _DEFAULT_EXCEPTIONS}
+    live = {g for m in modules for g in _default_gaps(m)}
+    assert set(_DEFAULT_EXCEPTIONS) <= live

@@ -216,3 +216,38 @@ def test_bmps_is_closer_to_the_dense_state_than_bp():
     bmps = tp.make_grid_bmps(tspec, 3, 3, 9, niters=8)[1](state.tensors, _Z)
     assert np.abs(bp - exact).max() > 1e-3
     np.testing.assert_allclose(bmps.numpy(), exact, atol=1e-8)
+
+
+def test_long_rows_stay_finite_in_complex64():
+    """A state whose double-layer environments underflow 32 bits (the
+    converged 3×4 χ=3 grid, every tensor scaled by 1e-6, so a row's
+    environment spans 1e-48): the port keeps each environment and row
+    carry at unit norm with its scale as a float64 logarithm, so its
+    complex64 ⟨Z⟩ and log|Z| are the JAX package's complex128 ones on the
+    same tensors, at the complex64 band, and ⟨Z⟩ is the unscaled state's
+    while log|Z| moves by exactly 2·V·log(1e-6).  The JAX package's
+    complex64 evaluators read NaN here (their environments reach zero),
+    as they do on the 164-qubit heavy-hex state of
+    examples/heavyhex_ising_dynamics.py at its defaults."""
+    jspec, jt, tspec, t, nx, ny = _grid("grid3x4", 3)
+    scale = 1e-6
+    small = t * scale
+    small64 = small.to(torch.complex64)
+    norm, expect = tp.make_grid_bmps(tspec, nx, ny, 6, **_FIXED)
+    log_z_small, _ = norm(small64)
+    z_small = expect(small64, _Z)
+    assert torch.isfinite(z_small).all() and torch.isfinite(log_z_small)
+    j_norm, j_expect = j_bmps.make_grid_bmps(jspec, nx, ny, 6, **_FIXED)
+    j_small = jnp.asarray(small.numpy())
+    np.testing.assert_allclose(
+        z_small.numpy(), np.asarray(j_expect(j_small, jnp.asarray(_Z))),
+        atol=1e-4)
+    np.testing.assert_allclose(float(log_z_small), float(j_norm(j_small)[0]),
+                               atol=1e-3)
+    np.testing.assert_allclose(z_small.numpy(), expect(t, _Z).numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        float(log_z_small) - 2 * tspec.num_vertices * np.log(scale),
+        float(norm(t)[0]), atol=1e-3)
+    assert np.isnan(np.asarray(j_expect(j_small.astype(jnp.complex64),
+                                        jnp.asarray(_Z, jnp.complex64)))).all()

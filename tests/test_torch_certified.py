@@ -213,3 +213,31 @@ def test_single_truncate_of_padded_strands(dtype, atol):
         np.testing.assert_allclose(
             dense_out * np.exp(float(log_norm[s])) / np.abs(dense_in).max(),
             dense_in / np.abs(dense_in).max(), atol=atol)
+
+
+def test_long_rows_stay_finite_in_complex64(monkeypatch):
+    """The converged 3×4 χ=3 grid with every tensor scaled by 1e-6, so its
+    double-layer environments span 1e-48 and underflow 32 bits: with the
+    JAX package's complex128 draws forced, the port's complex64 sampler
+    keeps every environment, R factor and carry at unit norm with its scale
+    logged, and reads the JAX complex128 run's conditionals (logq) and p/q
+    on the same tensors.  The JAX package's complex64 sampler reads NaN
+    here."""
+    jspec, _, tspec, tensors, _ = ms.converged("grid3x4", 3)
+    small = tensors * 1e-6
+    kw = dict(norm_rank=6, projected_rank=6, niters=6)
+    keys = jax.random.split(jax.random.PRNGKey(5), 4)
+    j_sampler = j_cert.make_grid_certified_sampler(jspec, 3, 4, **kw)
+    bits_j, logq_j, lpq_j = j_sampler(jnp.asarray(small), keys)
+    bits_j = np.asarray(bits_j)
+    assert np.isfinite(logq_j).all() and np.isfinite(lpq_j).all()
+    monkeypatch.setattr(t_cert, "_draw", ms.ForcedDraws(bits_j.reshape(4, -1)))
+    bits, logq, lpq = tp.make_grid_certified_sampler(tspec, 3, 4, **kw)(
+        torch.from_numpy(small).to(torch.complex64), 4)
+    assert torch.isfinite(logq).all() and torch.isfinite(lpq).all()
+    np.testing.assert_array_equal(bits.numpy(), bits_j)
+    np.testing.assert_allclose(logq.numpy(), np.asarray(logq_j), atol=1e-4)
+    np.testing.assert_allclose(lpq.numpy(), np.asarray(lpq_j), atol=1e-3)
+    _, logq_j64, lpq_j64 = j_sampler(jnp.asarray(small, jnp.complex64), keys)
+    assert np.isnan(np.asarray(logq_j64)).all()
+    assert np.isnan(np.asarray(lpq_j64)).all()

@@ -3,6 +3,7 @@ written to the log directory, the layer timer on the CPU (host clock, no
 device to wait for), and the config dataclasses, as the JAX package's
 ``tests/test_profiling.py`` checks them."""
 
+import inspect
 import json
 import os
 
@@ -32,14 +33,34 @@ def _on_cpu():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The trace lands in ``log_dir/trace.json``, which is what ``trace``
+    yields (as the JAX package's does), and holds the region's matmul."""
     log_dir = str(tmp_path / "trace")
-    with trace(log_dir) as prof:
+    with trace(log_dir) as where:
         torch.ones(8, 8) @ torch.ones(8, 8)
-    path = os.path.join(log_dir, "trace.json")
-    with open(path) as f:
+    assert where == log_dir
+    with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
-    assert any("mm" in a.key for a in prof.key_averages())
+
+
+def test_trace_defaults_to_the_reference_directory(tmp_path, monkeypatch):
+    """With no argument ``trace`` writes under ``/tmp/tnqs-trace``, the JAX
+    package's default, not under the working directory.  The directory it
+    creates and the file it exports are recorded, not written, so the test
+    writes nothing outside its own temporary directory."""
+    monkeypatch.chdir(tmp_path)
+    made, exported = [], []
+    monkeypatch.setattr(os, "makedirs", lambda d, **kw: made.append(d))
+    monkeypatch.setattr(torch.profiler.profile, "export_chrome_trace",
+                        lambda self, path: exported.append(path))
+    with trace() as where:
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    reference = inspect.signature(j_profiling.trace).parameters["log_dir"]
+    assert where == "/tmp/tnqs-trace" == reference.default
+    assert made == [where]
+    assert exported == [os.path.join(where, "trace.json")]
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_layer_timer_accumulates():
