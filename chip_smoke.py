@@ -20,7 +20,9 @@ Phases, each printing its checks and seconds:
    [36,10,10], K2 ``jacobi_eigh`` on full-rank and rank-deficient PSD
    batches at [12,40,40], [200,64,64], the rolled path's [1,40,40],
    [3,40,40], [7,40,40] and, in a cluster of 8 CTAs per matrix, [4,128,128],
-   [6,256,256] and [48,256,256], K3
+   [6,256,256] and [48,256,256], and on graded Gram batches (1 ... 1e-6 and
+   a null space) at [12,24,24], [12,40,40], [4,256,256]; every K2 check
+   also holds the eigenpairs a Gram split keeps (``kept_ratios``), K3
    ``bp_outgoing_d3`` at [127,8,8,8,2] and [127,64,64,64,2], K4
    ``complex_matmul`` against its plain version and a complex128 numpy A@B
    on six shapes (a ragged one and [8,512,512] among them);
@@ -177,12 +179,11 @@ Phases, each printing its checks and seconds:
    tolerance, decided by rounding: then they are printed only); then
    ising_2d_dynamics on the fast stack at its defaults
    (χ=5, whose 5x5 environment roots K1's shape gate, the reference's,
-   leaves to the library) and at χ=6 with the library SVD split
-   (``SVD_STACK``, as the noisy check; the ``examples_fast_stack`` path):
-   K1 and K2 must launch, every site's ⟨Z⟩ within 1e-4 of the same run at
-   default knobs ((15) (a)'s at the defaults); χ=6 on the full fast stack
-   is printed, not held: K2 in the gram split moves it beyond 1e-4, an
-   open fault (ROADMAP Queue 3);
+   leaves to the library), at χ=6 (K1 on the roots, K2 in the Gram split)
+   and at χ=6 with the library SVD split (``SVD_STACK``, as the noisy
+   check; together the ``examples_fast_stack`` path): K1 and K2 must
+   launch, both in the χ=6 fast-stack run, every site's ⟨Z⟩ within 1e-4
+   of the same run at default knobs ((15) (a)'s at the defaults);
 17. ``sharded``: the multi-device engine (``parallel/sharding.py`` and
    the modules built on it), every shard on this one card, so the times
    say nothing of scaling over cards.  (a) the chi32 configuration, 5x5
@@ -244,11 +245,13 @@ last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 when no CUDA device is visible.
 
-Two diagnostic modes print one JSON line instead:
+Three diagnostic modes print one JSON line instead:
 ``--time-bmps ROOT`` times the boundary-MPS calls of ``measure`` with the
 package of the tree at ROOT (run it on two trees, alternating, to compare
-them on one card), and ``--fast-stack CHI`` prints how far each knob
-stack moves ising_2d_dynamics' ⟨Z⟩ at χ=CHI from the default knobs.
+them on one card), ``--fast-stack CHI`` prints how far each knob stack
+moves ising_2d_dynamics' ⟨Z⟩ at χ=CHI from the default knobs, and
+``--kept-bar ROOT`` holds the K2 of the tree at ROOT to the kept-eigenpair
+bar on the batches the fast stack hands it at χ=6 and on chi64.
 """
 
 from __future__ import annotations
@@ -513,8 +516,74 @@ def check_k1(dev, rng, cl) -> list:
     return entries
 
 
+# K2's bar on the eigenpairs a Gram split keeps (engine._su_split): in
+# descending order, those whose tail sum of |w| is above KEPT_CUTOFF of the
+# total, at most n/4 (χ: the split's Gram matrix is d·χ = 2χ wide on each
+# side of a d = 2 bond, n = 24, 40, 256 at χ = 6, 10, 64).  A bar relative
+# to the largest eigenvalue cannot see them.  Each kept eigenvalue, and the
+# kept subspace weighted by |A|^1/2 (the truncated split M·P_kept's error
+# in ‖M‖_F, A = M†M), are held against the complex128 eigh of the same
+# complex64 input at KEPT_BAR times the error the library's complex64 eigh
+# shows there (torch.linalg.eigh on the host, LAPACK in single precision).
+# That unit is floored at ε·λmax for eigenvalues and at √KEPT_CUTOFF for
+# the subspace: the split's own cutoff moves M·P_kept by up to
+# √cutoff·‖M‖_F, and the library resolves eigenpairs far below float32's
+# absolute resolution (1e-10 of the trace) on inputs with exact zeros
+# where no Jacobi sweep count does.  It is scaled by ‖A‖_F/‖A‖_2: the
+# kernels stop on pivots of at most 4·ε·‖A‖_F where the library's backward
+# error is ε·‖A‖_2, and a flat spectrum (a full-rank random batch) has
+# ‖A‖_F/‖A‖_2 of order √n/2 where a Gram split's decaying one has it
+# near 1.
+KEPT_CUTOFF = 1e-10
+KEPT_BAR = 10.0
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def descending(w, v):
+    order = np.argsort(-w, axis=-1, kind="stable")
+    return (np.take_along_axis(w, order, -1),
+            np.take_along_axis(v, order[:, None, :], -1))
+
+
+def kept_errors(w, v, ref):
+    """(max |w - w_ref| over the kept eigenvalues, max over the batch of
+    the kept subspace's |A|^1/2-weighted error); ``ref`` is the
+    complex128 (w, v) in descending order."""
+    (w, v), (wr, vr) = descending(w, v), ref
+    p = np.abs(wr)
+    tail = np.cumsum(p[:, ::-1], -1)[:, ::-1]
+    keep = tail > KEPT_CUTOFF * p.sum(-1, keepdims=True)
+    keep[:, 0] = True
+    keep[:, wr.shape[-1] // 4:] = False
+    e_w = float(np.where(keep, np.abs(w - wr), 0).max())
+    vk, vrk = v * keep[:, None, :], vr * keep[:, None, :]
+    herm = lambda x: np.conj(np.swapaxes(x, -1, -2))  # noqa: E731
+    root = (vr * np.sqrt(p)[:, None, :]) @ herm(vr)  # |A|^1/2
+    dp = vk @ herm(vk) - vrk @ herm(vrk)
+    e_sub = float((np.linalg.norm(root @ dp, axis=(1, 2))
+                   / np.linalg.norm(root, axis=(1, 2))).max())
+    return e_w, e_sub
+
+
+def kept_ratios(a, w, v):
+    """K2's kept-eigenpair errors on the complex64 batch ``a`` (numpy) as
+    multiples of the library complex64 eigh's, scaled by the batch's
+    largest ‖A‖_F/‖A‖_2: (eigenvalues, subspace)."""
+    a128 = a.astype(np.complex128)
+    ref = descending(*np.linalg.eigh(a128))
+    lw, lv = torch.linalg.eigh(torch.from_numpy(a.astype(np.complex64)))
+    l_w, l_sub = kept_errors(lw.numpy().astype(np.float64),
+                             lv.numpy().astype(np.complex128), ref)
+    k_w, k_sub = kept_errors(w, v, ref)
+    norm2 = np.abs(ref[0]).max(-1)
+    flat = float((np.linalg.norm(a128, axis=(1, 2)) / norm2).max())
+    return (k_w / (max(l_w, EPS32 * float(norm2.max())) * flat),
+            k_sub / (max(l_sub, KEPT_CUTOFF ** 0.5) * flat))
+
+
 def check_eigh(a, w, v, tol):
-    """Bars of tests/test_pallas_linalg.py:21-32."""
+    """Bars of tests/test_pallas_linalg.py:21-32, and the kept eigenpairs'
+    (`kept_ratios`, at most KEPT_BAR)."""
     n = a.shape[-1]
     w = w.detach().cpu().numpy().astype(np.float64)
     v = to_np(v)
@@ -525,24 +594,32 @@ def check_eigh(a, w, v, tol):
     e_rec = rel(recon, a.astype(np.complex128))
     e_unit = float(np.abs(np.einsum("bji,bjk->bik", np.conj(v), v)
                           - np.eye(n)).max())
+    kept_w, kept_sub = kept_ratios(a, w, v)
     ok = (np.all(np.diff(w, axis=-1) >= -tol) and e_w < tol
-          and e_rec < tol and e_unit < tol)
-    return ok, e_w, e_rec, e_unit
+          and e_rec < tol and e_unit < tol
+          and max(kept_w, kept_sub) <= KEPT_BAR)
+    return ok, e_w, e_rec, e_unit, kept_w, kept_sub
 
 
 def assert_eigh(cl, at, tol, what) -> dict:
-    """K2 on one batch: the `_check` bars, and eigenvalues against the
-    plain version (relative to the largest).  Returns the comparison."""
+    """K2 on one batch: the `_check` bars, the kept eigenpairs' bar, and
+    eigenvalues against the plain version (relative to the largest).
+    Returns the comparison."""
     w, v = cl.jacobi_eigh(at)
-    ok, e_w, e_rec, e_unit = check_eigh(to_np(at), w, v, tol)
+    ok, e_w, e_rec, e_unit, kept_w, kept_sub = check_eigh(to_np(at), w, v,
+                                                          tol)
     assert ok, (f"K2 {what}: eigenvalues {e_w:.3e}, reconstruction "
-                f"{e_rec:.3e}, unitarity {e_unit:.3e} (bar {tol})")
+                f"{e_rec:.3e}, unitarity {e_unit:.3e} (bar {tol}); kept "
+                f"eigenvalues {kept_w:.2f}, kept subspace {kept_sub:.2f} x "
+                f"the library complex64 eigh's error (bar {KEPT_BAR})")
     pw, _ = cl.eigh_plain(at)
     entry = compared(what, (at,), (w,), (pw,))
     assert entry["rel"] < tol, (
         f"K2 {what}: eigenvalues vs plain {entry['rel']:.3e} (bar {tol})")
     entry["log"] = (f"eigenvalues {e_w:.2e}, reconstruction {e_rec:.2e}, "
-                    f"unitarity {e_unit:.2e}; vs plain {entry['rel']:.2e}")
+                    f"unitarity {e_unit:.2e}; kept eigenvalues / subspace "
+                    f"{kept_w:.2f} / {kept_sub:.2f} x library (bar "
+                    f"{KEPT_BAR:g}); vs plain {entry['rel']:.2e}")
     return entry
 
 
@@ -552,8 +629,10 @@ def check_k2(dev, rng, cl) -> list:
     path's shapes, full rank and rank-deficient: the chi10 gram split
     [12,40,40], the chi64 environment roots [200,64,64], the chi64 gram
     split's size [6,256,256] / [48,256,256], [4,128,128], and the rolled
-    path's buckets of 1, 3 and 7 matrices.  Returns the main-path-shape
-    comparisons."""
+    path's buckets of 1, 3 and 7 matrices; then graded Gram batches, a
+    Gram split's spectrum (n/4 kept eigenvalues 1 ... 1e-6, then a null
+    space), at χ=6's [12,24,24], chi10's [12,40,40] and chi64's n=256.
+    Returns the main-path-shape comparisons."""
     entries = []
     for n in (32, 40, 64, 88, 128, 256):
         assert cl.eigh_kernel_supported(n, 8), n
@@ -574,6 +653,13 @@ def check_k2(dev, rng, cl) -> list:
                     (4, 128, 32), (6, 256, 256), (48, 256, 64)):
         at = torch.from_numpy(gram(rng, B, n, r)).to(dev)
         entry = assert_eigh(cl, at, 2e-4, f"{B}x{n}x{n} gram rank {r}")
+        log("k2", f"{entry['shape']}: {entry['log']}")
+        entries.append(entry)
+    for B, n in ((12, 24), (12, 40), (4, 256)):
+        w = np.concatenate([np.logspace(0, -6, n // 4), np.zeros(n - n // 4)])
+        at = torch.from_numpy(psd(random_unitaries(rng, B, n),
+                                  np.tile(w, (B, 1)))).to(dev)
+        entry = assert_eigh(cl, at, 2e-4, f"{B}x{n}x{n} graded 1..1e-6")
         log("k2", f"{entry['shape']}: {entry['log']}")
         entries.append(entry)
     return entries
@@ -2703,15 +2789,16 @@ def busy_shares(profiled: dict, card, phase: str = "measure") -> None:
     kernel and copy ``torch.profiler`` traced, over the call's time
     without the profiler (the trace stretches the host's part of the wall,
     not the kernels).  Run last: the profiler stays attached and slows
-    later launches."""
+    later launches.  Only the device is traced: the host's operators,
+    which nothing here reads, would add events for ``key_averages`` to
+    post-process, the phase's main host cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for name, (fn, plain_ms) in profiled.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2803,13 +2890,13 @@ EXAMPLE_CUTS = {"variational_ground_state": dict(steps=200),
                 "excited_states": dict(steps=150)}
 # ising_2d_dynamics on the fast stack at its defaults (χ=5): the
 # environment roots are 5x5, which K1's shape gate (the reference's: even
-# 4 <= n <= 40) sends to the library, so only K2 (the Gram split's 10x10)
-# launches.  K1 runs at χ=6 (6x6 roots), on the fast stack with the
-# library SVD split.  On the full fast stack χ=6 moves <Z> by 1.7e-4 to
-# 1.9e-4 (hash seeds 0-4, H100, `--fast-stack 6`), and by 1.3e-5 to 2.3e-5
-# with K2 replaced by the library eigh (KERNELS_OFF): an open fault of K2
-# (ROADMAP Queue 3), printed each run by examples_phase, not held here
-FAST_STACK_RUNS = ((5, FAST_STACK), (6, SVD_STACK))
+# 4 <= n <= 40) sends to the library, so only K2 (the Gram split's [9-11,
+# 20,20]) launches.  At χ=6 K1 runs the 6x6 roots and K2 the Gram split's
+# [9-11,24,24], whose smallest kept eigenvalues sit near 5e-7 of the
+# largest, below K1's noise floor: with that floor K2 moved <Z> there by
+# 1.7e-4 to 1.9e-4 (hash seeds 0-4, H100, `--fast-stack 6`).  χ=6 also
+# runs with the library SVD split (K1 alone)
+FAST_STACK_RUNS = ((5, FAST_STACK), (6, FAST_STACK), (6, SVD_STACK))
 # card against CPU at the reduced arguments, the tests' bars: (number,
 # columns or None, rtol, atol)
 EXAMPLE_BARS = {
@@ -3011,11 +3098,11 @@ def examples_phase(tt, dev, engine, counters, card, z_default=None):
     test's bars, except after a BP refresh that stopped one sweep apart at
     the tolerance (``straddles``).  Then ising_2d_dynamics at its defaults
     again under
-    FAST_STACK, and at χ=6 under SVD_STACK (FAST_STACK_RUNS), as the
-    ``examples_fast_stack`` path: K1 and K2 must launch, and every site's
-    ⟨Z⟩ stays within BAND of the same run at default knobs (at its
-    defaults ``z_default``, from ``[generic_bmps]`` (a), computed here when
-    None).  χ=6 on the full FAST_STACK, K2's open fault, is printed.
+    FAST_STACK, and at χ=6 under FAST_STACK and SVD_STACK
+    (FAST_STACK_RUNS), as the ``examples_fast_stack`` path: K1 and K2 must
+    launch, both in the χ=6 FAST_STACK run, and every site's ⟨Z⟩ stays
+    within BAND of the same run at default knobs (at its defaults
+    ``z_default``, from ``[generic_bmps]`` (a), computed here when None).
     Every reading is printed before a bar is held.  Returns {path:
     launches}."""
     failed = []
@@ -3093,36 +3180,38 @@ def examples_phase(tt, dev, engine, counters, card, z_default=None):
     for chi, _ in FAST_STACK_RUNS:
         if chi == 5 and z_default is not None:
             plain[chi] = z_default  # (15) (a): the defaults, default knobs
-        else:
+        elif chi not in plain:
             plain[chi] = sites(ising_2d_example(dev, chi=chi)[4])
 
+    per_run = []  # launches of each run
+
     def fast_runs():
-        out = {}
+        out = []
         for chi, env in FAST_STACK_RUNS:
+            before = {k: c.count for k, c in counters.items()}
             with knobs(env):
-                out[chi] = sites(ising_2d_example(dev, chi=chi)[4])
+                out.append(sites(ising_2d_example(dev, chi=chi)[4]))
+            per_run.append({k: c.count - before[k]
+                            for k, c in counters.items()})
         return out
 
     fast, z_fast = counted(counters, "examples_fast_stack", ("K1", "K2"),
                            fast_runs)
-    for chi, env in FAST_STACK_RUNS:
-        dz = float(np.abs(z_fast[chi] - plain[chi]).max())
+    for (chi, env), z, ran in zip(FAST_STACK_RUNS, z_fast, per_run):
+        dz = float(np.abs(z - plain[chi]).max())
         stack = "the fast stack" if env is FAST_STACK else (
             "the fast stack with the library SVD split")
         log("examples", f"ising_2d_dynamics (20 layers, 5x5) at chi={chi} on "
                         f"{stack}: max site |dZ| vs the default knobs "
-                        f"{dz:.2e} (bar {BAND})")
+                        f"{dz:.2e} (bar {BAND}); launched {ran}")
         if dz > BAND:
-            failed.append(f"ising_2d_dynamics chi={chi} |dZ| {dz:.3e}")
-    log("examples", f"the fast-stack runs (chi 5 and 6) launched {fast}")
-    # the open fault of K2 in the gram split at χ=6 (FAST_STACK_RUNS)
-    with knobs(FAST_STACK):
-        dz6 = float(np.abs(sites(ising_2d_example(dev, chi=6)[4])
-                           - plain[6]).max())
-    log("examples", f"OPEN FAULT (ROADMAP Queue 3, not held): "
-                    f"ising_2d_dynamics at chi=6 on the full fast stack: max "
-                    f"site |dZ| vs the default knobs {dz6:.2e} (band {BAND}); "
-                    f"the same split with the library eigh stays inside it")
+            failed.append(f"ising_2d_dynamics chi={chi} {stack} |dZ| "
+                          f"{dz:.3e}")
+        if chi == 6 and env is FAST_STACK and not (ran["K1"] and ran["K2"]):
+            failed.append(f"ising_2d_dynamics chi=6 on the fast stack "
+                          f"launched {ran}: K1 and K2 must both run")
+    log("examples", f"the fast-stack runs {[c for c, _ in FAST_STACK_RUNS]} "
+                    f"launched {fast}")
 
     log("examples", f"{card}: ms per example at its defaults (CUDA events): "
                     + ", ".join(f"{k} {v[0]:.0f}" for k, v in times.items()))
@@ -3605,6 +3694,73 @@ def fast_stack_moves(chi) -> int:
     return 0
 
 
+def kept_bar(root) -> int:
+    """``python3 chip_smoke.py --kept-bar ROOT``: K2's kept-eigenpair bar
+    (``kept_ratios``) and its sweeps on every batch the fast stack hands
+    it, with the port's package imported from the tree at ROOT (unpack the
+    parent with ``git archive`` under ``build/`` to hold its K2 to the same
+    bar): ising_2d_dynamics at its defaults but χ=6 (the Gram split at
+    [9-11,24,24]) and 2 chi64 layers (the roots at n=64, the Gram split at
+    n=256).  Prints one JSON line: per path and n, the calls, the worst
+    ratios, the batches past KEPT_BAR and the sweeps per matrix (min /
+    median / max); and how far the χ=6 run moves ⟨Z⟩ from the default
+    knobs."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import tensornetworkquantumsimulator_torch as tt
+    from tensornetworkquantumsimulator_torch.parallel import cuda_linalg as cl
+    from tensornetworkquantumsimulator_torch.parallel import engine
+
+    assert Path(tt.__file__).resolve().is_relative_to(root), tt.__file__
+    dev = torch.device("cuda")
+    seen = []
+    eigh = engine.jacobi_eigh
+
+    def recorded(h, *args, **kwargs):
+        seen.append(h.clone())
+        return eigh(h, *args, **kwargs)
+
+    def run(path, fn):
+        seen.clear()
+        with patched(engine, "jacobi_eigh", recorded):
+            out = fn()
+        rows = {}
+        for h in seen:
+            sweeps = torch.zeros(h.shape[0], dtype=torch.int32, device=dev)
+            w, v = cl.jacobi_eigh(h, sweeps=sweeps)
+            k_w, k_sub = kept_ratios(to_np(h), w.cpu().numpy().astype(
+                np.float64), to_np(v))
+            row = rows.setdefault(f"{path} n={h.shape[-1]}", {
+                "calls": 0, "matrices": 0, "kept_w": 0.0, "kept_sub": 0.0,
+                "past_bar": 0, "sweeps": []})
+            row["calls"] += 1
+            row["matrices"] += h.shape[0]
+            row["kept_w"] = max(row["kept_w"], k_w)
+            row["kept_sub"] = max(row["kept_sub"], k_sub)
+            row["past_bar"] += max(k_w, k_sub) > KEPT_BAR
+            row["sweeps"] += sweeps.cpu().tolist()
+        for row in rows.values():
+            sw = sorted(row.pop("sweeps"))
+            row["sweeps_min_median_max"] = [sw[0], sw[len(sw) // 2], sw[-1]]
+        return out, rows
+
+    z0 = ising_2d_sites(tt, ising_2d_example(dev, chi=6)[4])
+    with knobs(FAST_STACK):
+        z6, rows = run("chi6", lambda: ising_2d_sites(
+            tt, ising_2d_example(dev, chi=6)[4]))
+    _, rows64 = run("chi64", lambda: run_layers(tt, dev, "chi64", 2,
+                                                FAST_STACK))
+    print(json.dumps({
+        "root": str(root), "card": card_line(),
+        "PYTHONHASHSEED": os.environ.get("PYTHONHASHSEED"),
+        "chi6_fast_stack_dz": float(np.abs(z6 - z0).max()),
+        "kept_bar": KEPT_BAR, **rows, **rows64}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` prints them (empty
     if it prints nothing)."""
@@ -3979,4 +4135,6 @@ if __name__ == "__main__":
         sys.exit(time_bmps(sys.argv[2]))
     if sys.argv[1:2] == ["--fast-stack"]:
         sys.exit(fast_stack_moves(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--kept-bar"]:
+        sys.exit(kept_bar(sys.argv[2]))
     sys.exit(main())

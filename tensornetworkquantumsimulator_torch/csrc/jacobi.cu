@@ -8,7 +8,8 @@
 // Jacobi.  The TPU kernel runs a fixed sweep count; this one stops each
 // matrix after the first sweep in which every pivot |b| was at most
 // 4 eps ||A||_F, capped at the caller's max_sweeps, and reports the sweeps
-// it ran.
+// it ran.  Each caller passes its noise floor (see the note on pairs at
+// noise level): K1 4 eps ||A||_F, K2 none.
 //
 // What bounds it on the H100.  Not device memory (one read of the batch, one
 // write of the results) and not flops: a sweep is n - 1 rounds in sequence,
@@ -57,13 +58,21 @@
 //     that owns the row with only __syncwarp between.
 //   * n is a template parameter at the main paths' sizes (K2 40, 64, 256;
 //     K1 10), with a generic fallback.
-//   * Pairs at noise level are left alone.  On a rank-deficient matrix the
-//     null space's 2x2 blocks hold only rounding noise; rotating them (at
-//     angles of order one) mixes the null columns and refills the couplings
-//     between range and null space that earlier rotations had cleared, so
-//     those pivots shrink by a constant factor a sweep instead of
-//     quadratically (up to 20 sweeps where 8 do).  A pair whose |d|, |c|
-//     and |b| are all below the stopping bound is skipped.
+//   * Pairs at noise level, a floor each caller passes.  On a rank-
+//     deficient matrix the null space's 2x2 blocks hold only rounding
+//     noise; rotating them (at angles of order one) mixes the null columns
+//     and refills the couplings between range and null space that earlier
+//     rotations had cleared, so those pivots shrink by a constant factor a
+//     sweep instead of quadratically (up to 3 sweeps more on rank n/4
+//     batches at n = 40 and 64).  A pair whose |d|, |c| and |b| are all at
+//     most noise_floor eps ||A||_F is skipped.  K1 passes 4 (the stopping
+//     bound): its clip zeroes every eigenvalue below 10 eps lambda_max, so
+//     what the skip leaves mixed it discards.  K2 passes 0 and skips
+//     nothing: a Gram split keeps eigenvalues far below 4 eps ||A||_F (down
+//     to 1e-10 of the trace), and a skipped block of a kept and a dropped
+//     eigenpair leaves the kept subspace off by an angle of order one
+//     (ising_2d_dynamics at chi = 6 keeps eigenvalues near 5e-7 lambda_max;
+//     with the skip, K2 moved its <Z> by 1.7e-4 to 1.9e-4 on an H100).
 //   * One launch.  K2's polish (one Newton-Schulz pass, the Rayleigh
 //     quotient against the original matrix, the ascending sort) and K1's
 //     epilogue (two Newton-Schulz passes, Rayleigh, the 10 eps lambda_max
@@ -74,15 +83,18 @@
 //     3 n^2 bytes, 193 KB at n = 256).  `sigma` moves a row by one plane
 //     row, so all reads of the update are local and only the rows at a
 //     CTA's edges are written to a neighbour's shared memory; the pivot
-//     warp reads its three elements from the owners' copies and writes the
-//     parameters to all 8 CTAs; a round costs one cluster barrier.  Every
+//     warp reads its elements from the owners' copies (the pivot from both
+//     off-diagonal elements: the two sides of A are rotated separately and
+//     drift apart by rounding) and writes the parameters to all 8 CTAs; a
+//     round costs one cluster barrier.  Every
 //     CTA takes the stopping decision from the same values, so a cluster
 //     leaves the loop together.  At these sizes the kernel returns the raw
 //     decomposition and the wrapper polishes.
 //
 // Numerical guards kept from the reference: the scaled hypot for |b| (no
 // f32 denormals in b.re^2 + b.im^2) and the skip of pairs whose
-// off-diagonal is at rounding level.  ||A||_F is summed in a fixed order, so
+// off-diagonal is at rounding level relative to the pair, eps/32 (|d| +
+// |c|), the reference's only skip.  ||A||_F is summed in a fixed order, so
 // the stopping sweep is deterministic.
 //
 // Interface: plain extern "C" functions taking device pointers and a
@@ -151,7 +163,11 @@ __device__ __forceinline__ float pow2_recip(float x) {
 // Rotation J = [[u cs, u sn], [-sn, cs]] annihilating the pivot b of
 // [[d, b], [conj b, c]], as (cs, sn, u.re, u.im); m = max(|b.re|, |b.im|).
 // Identity for a pivot at rounding level (the induced eigenvalue change is
-// O(b^2/(c-d)) < eps^2) and for a block that is all noise (see the note).
+// O(b^2/(c-d)) < eps^2), for a pivot below the normal range (the scaling
+// below needs a normal m: a denormal m would scale |b| to 0, and at d = c,
+// a zero block of a padded bond, make 0 * inf), and for a block whose
+// |d|, |c| and m are all at most `noise` (the caller's floor, see the note;
+// 0 skips no other block).
 // The chain every round waits on is kept short: with g = (c - d)/2,
 //   t = sign(g) |b| / (|g| + sqrt(g^2 + |b|^2)),  cs = 1/sqrt(1 + t^2),
 // the same tangent as sign(tau)/(|tau| + sqrt(1 + tau^2)) at tau = g/|b|
@@ -164,7 +180,7 @@ __device__ __forceinline__ float4 rotation(float d, float c, float2 b,
                                            float noise, float& m) {
   m = fmaxf(fabsf(b.x), fabsf(b.y));
   float4 rot = make_float4(1.f, 0.f, 1.f, 0.f);
-  if (m > FLT_EPSILON * 0.03125f * (fabsf(d) + fabsf(c)) &&
+  if (m > FLT_EPSILON * 0.03125f * (fabsf(d) + fabsf(c)) && m >= FLT_MIN &&
       fmaxf(m, fmaxf(fabsf(d), fabsf(c))) > noise) {
     const float rm = pow2_recip(m);
     const float x = b.x * rm, y = b.y * rm;  // the larger in [1, 2)
@@ -298,6 +314,16 @@ __device__ __forceinline__ float2 rotated_element(const float2* x, int S,
   return cadd(cscale(al, cmulc(ua, y_p)), cscale(be, y_q));
 }
 
+// The pivot of the hermitian part, (b + conj(bt)) / 2, from the pair's two
+// off-diagonal elements.  A cluster rotates both sides of A separately, so
+// they drift apart by rounding; a pivot taken from one side leaves the
+// other's drift to be chased in the null space of a rank-deficient matrix
+// (with no noise floor, one matrix of a rank-64 n = 256 batch ran 26 sweeps
+// on an H100 where the batch's median was 9).
+__device__ __forceinline__ float2 hermitian_part(float2 b, float2 bt) {
+  return make_float2(0.5f * (b.x + bt.x), 0.5f * (b.y - bt.y));
+}
+
 // Publish a pair's rotation and its pivot's size to every CTA of the cluster.
 template <int C>
 __device__ __forceinline__ void publish(float4* par_out, float* mval_out,
@@ -319,6 +345,7 @@ __device__ __forceinline__ void publish(float4* par_out, float* mval_out,
 // (a0, a0), (a1, a1) and (a0, a1), a = i / 2.
 struct PivotSource {
   int off_d, off_c, off_b;  // the three blocks in their owners' copies of A
+  int off_bt;  // block (a1, a0), whose element is conj(b) up to rounding
   int meta;  // a0 | a1 << 8 | parity of i0 << 16, of i1 << 17 | owners << 18
 };
 
@@ -331,6 +358,7 @@ __device__ __forceinline__ PivotSource pivot_source(int p, int h, int prow,
   src.off_d = (a0 - t0 * prow) * P + a0;
   src.off_c = (a1 - t1 * prow) * P + a1;
   src.off_b = (a0 - t0 * prow) * P + a1;
+  src.off_bt = (a1 - t1 * prow) * P + a0;
   src.meta = a0 | (a1 << 8) | ((i0 & 1) << 16) | ((i1 & 1) << 17) |
              (t0 << 18) | (t1 << 21);
   return src;
@@ -374,10 +402,11 @@ __host__ __device__ inline int row_lanes(int h) {
 // On return `a_final` is the offset of the copy holding the rotated A, and
 // rows [rank * n/C, ...) of V sit at L.v row-major, column s (slot order)
 // belonging to diagonal element s.  All threads of the CTA (all CTAs of the
-// cluster) take part.  Returns the sweeps run.
+// cluster) take part.  Pairs whose block is all at most noise_floor eps
+// ||A||_F are not rotated.  Returns the sweeps run.
 template <int N, int C>
 __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
-                             int& a_final) {
+                             float noise_floor, int& a_final) {
   using PL = Plan<N, C>;
   const int n = N ? N : n_rt, h = n / 2, P = pitch(h);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -415,6 +444,7 @@ __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
     for (int t = 0; t < C; ++t) fro2 += parts[t];
   }
   const float done_below = 4.f * FLT_EPSILON * sqrtf(fro2);
+  const float noise = noise_floor * FLT_EPSILON * sqrtf(fro2);
 
   // Warp 0 of each CTA takes the rotations of the pairs the CTA owns (lane
   // l the pairs l, l + 32, ...).  For the first round from A as it is; then,
@@ -431,7 +461,10 @@ __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
       const int p = rank * prow + pl;
       const float2* x = shared_at<float2>(L.a0) + pl * P + p;
       float m;
-      const float4 rot = rotation(x[0].x, x[3 * S].x, x[S], done_below, m);
+      const float4 rot = rotation(x[0].x, x[3 * S].x,
+                                  C > 1 ? hermitian_part(x[S], x[2 * S])
+                                        : x[S],
+                                  noise, m);
       publish<C>(par2, mval2, p, rot, m);
     }
   }
@@ -551,10 +584,13 @@ __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
               rotated_element(c0 + piv[q].off_d, S, r0, r0, odd0, odd0).x;
           const float c =
               rotated_element(c1 + piv[q].off_c, S, r1, r1, odd1, odd1).x;
-          const float2 b =
+          float2 b =
               rotated_element(c0 + piv[q].off_b, S, r0, r1, odd0, odd1);
+          if constexpr (C > 1)
+            b = hermitian_part(b, rotated_element(c1 + piv[q].off_bt, S, r1,
+                                                  r0, odd1, odd0));
           float m;
-          const float4 rot = rotation(d, c, b, done_below, m);
+          const float4 rot = rotation(d, c, b, noise, m);
           publish<C>(par2 + (pb ^ 1) * h, mval2 + (pb ^ 1) * h,
                      rank * prow + pl, rot, m);
         }
@@ -765,7 +801,8 @@ template <int N, int C>
 __global__ void __launch_bounds__(Plan<N, C>::kMaxThreads)
     jacobi_eigh_kernel(const float2* __restrict__ a, float* __restrict__ w,
                        float2* __restrict__ v, int* __restrict__ sweeps_out,
-                       int n_rt, int max_sweeps, int polish) {
+                       int n_rt, int max_sweeps, float noise_floor,
+                       int polish) {
   const int n = N ? N : n_rt, h = n / 2, rows = n / C, prow = h / C;
   const int tid = threadIdx.x, nt = blockDim.x;
   int rank = 0;
@@ -776,7 +813,8 @@ __global__ void __launch_bounds__(Plan<N, C>::kMaxThreads)
   load_planes(shared_at<float2>(L.a0), a_mat, n, prow, row0);
   __syncthreads();
   int a_final;
-  const int sweeps = jacobi_sweeps<N, C>(L, n, max_sweeps, a_final);
+  const int sweeps =
+      jacobi_sweeps<N, C>(L, n, max_sweeps, noise_floor, a_final);
   if (sweeps_out != nullptr && tid == 0 && rank == 0) sweeps_out[mat] = sweeps;
   float* w_mat = w + size_t(mat) * n;
   float2* v_mat = v + size_t(mat) * n * n;
@@ -819,7 +857,7 @@ __global__ void __launch_bounds__(Plan<N, 1>::kMaxThreads)
     jacobi_roots_kernel(const float2* __restrict__ a, float2* __restrict__ root,
                         float2* __restrict__ inv_root,
                         int* __restrict__ sweeps_out, int n_rt,
-                        int max_sweeps) {
+                        int max_sweeps, float noise_floor) {
   const int n = N ? N : n_rt, h = n / 2, nn = n * n;
   const int tid = threadIdx.x, nt = blockDim.x;
   const Layout L = layout(n, 1);
@@ -827,7 +865,8 @@ __global__ void __launch_bounds__(Plan<N, 1>::kMaxThreads)
   load_planes(shared_at<float2>(L.a0), a + off, n, h, 0);
   __syncthreads();
   int a_final;
-  const int sweeps = jacobi_sweeps<N, 1>(L, n, max_sweeps, a_final);
+  const int sweeps =
+      jacobi_sweeps<N, 1>(L, n, max_sweeps, noise_floor, a_final);
   if (sweeps_out != nullptr && tid == 0) sweeps_out[blockIdx.x] = sweeps;
 
   // both copies of A as scratch; two Newton-Schulz passes, W back in V's place
@@ -885,8 +924,8 @@ int threads_for(int n) {
 
 template <int N, int C>
 cudaError_t launch_eigh(const float2* a, float* w, float2* v, int* sweeps,
-                        int batch, int n, int max_sweeps, int polish,
-                        cudaStream_t stream) {
+                        int batch, int n, int max_sweeps, float noise_floor,
+                        int polish, cudaStream_t stream) {
   const int threads = threads_for<N, C>(n);
   const size_t smem = layout(n, C).total;
   auto kernel = jacobi_eigh_kernel<N, C>;
@@ -906,14 +945,14 @@ cudaError_t launch_eigh(const float2* a, float* w, float2* v, int* sweeps,
   cfg.attrs = &attr;
   cfg.numAttrs = C > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, a, w, v, sweeps, n, max_sweeps,
-                           polish);
+                           noise_floor, polish);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int N>
 cudaError_t launch_roots(const float2* a, float2* root, float2* inv_root,
                          int* sweeps, int batch, int n, int max_sweeps,
-                         cudaStream_t stream) {
+                         float noise_floor, cudaStream_t stream) {
   const int threads = threads_for<N, 1>(n);
   const size_t smem = layout(n, 1).total;
   auto kernel = jacobi_roots_kernel<N>;
@@ -921,7 +960,7 @@ cudaError_t launch_roots(const float2* a, float2* root, float2* inv_root,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   kernel<<<batch, threads, smem, stream>>>(a, root, inv_root, sweeps, n,
-                                           max_sweeps);
+                                           max_sweeps, noise_floor);
   return cudaGetLastError();
 }
 
@@ -935,16 +974,19 @@ const char* tnqs_error_string(int err) {
 
 // K2 on `batch` hermitian n x n matrices.  n even, 4 <= n <= 88 (one CTA a
 // matrix) or a multiple of 16 up to 256 (a cluster of 8, polish ignored).
-// sweeps: null or `batch` ints.
+// sweeps: null or `batch` ints.  noise_floor: pairs all at most
+// noise_floor eps ||A||_F are skipped (0: none).
 int tnqs_jacobi_eigh(const void* a, void* w, void* v, void* sweeps, int batch,
-                     int n, int max_sweeps, int polish, void* stream) {
+                     int n, int max_sweeps, float noise_floor, int polish,
+                     void* stream) {
   const auto* a_ = static_cast<const float2*>(a);
   auto* w_ = static_cast<float*>(w);
   auto* v_ = static_cast<float2*>(v);
   auto* s_ = static_cast<int*>(sweeps);
   auto st = static_cast<cudaStream_t>(stream);
 #define TNQS_EIGH(N, C) \
-  launch_eigh<N, C>(a_, w_, v_, s_, batch, n, max_sweeps, polish, st)
+  launch_eigh<N, C>(a_, w_, v_, s_, batch, n, max_sweeps, noise_floor, \
+                    polish, st)
   if (n % 2 != 0 || n < 4 || batch <= 0) return cudaErrorInvalidValue;
   if (n <= kOneCtaMaxN) {
     if (n == 40) return TNQS_EIGH(40, 1);
@@ -957,10 +999,11 @@ int tnqs_jacobi_eigh(const void* a, void* w, void* v, void* sweeps, int batch,
 #undef TNQS_EIGH
 }
 
-// K1 on `batch` hermitian PSD n x n matrices, n even, 4 <= n <= 40.
+// K1 on `batch` hermitian PSD n x n matrices, n even, 4 <= n <= 40;
+// noise_floor as for K2.
 int tnqs_jacobi_pseudo_roots(const void* a, void* root, void* inv_root,
                              void* sweeps, int batch, int n, int max_sweeps,
-                             void* stream) {
+                             float noise_floor, void* stream) {
   const auto* a_ = static_cast<const float2*>(a);
   auto* r_ = static_cast<float2*>(root);
   auto* i_ = static_cast<float2*>(inv_root);
@@ -969,8 +1012,10 @@ int tnqs_jacobi_pseudo_roots(const void* a, void* root, void* inv_root,
   if (n % 2 != 0 || n < 4 || n > kOneCtaMaxN || batch <= 0)
     return cudaErrorInvalidValue;
   if (n == 10)
-    return launch_roots<10>(a_, r_, i_, s_, batch, n, max_sweeps, st);
-  return launch_roots<0>(a_, r_, i_, s_, batch, n, max_sweeps, st);
+    return launch_roots<10>(a_, r_, i_, s_, batch, n, max_sweeps,
+                            noise_floor, st);
+  return launch_roots<0>(a_, r_, i_, s_, batch, n, max_sweeps, noise_floor,
+                         st);
 }
 
 }  // extern "C"

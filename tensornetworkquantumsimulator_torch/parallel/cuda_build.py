@@ -36,12 +36,13 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t as int)
 _SIGNATURES = {
-    # (a, w, v, sweeps, batch, n, max_sweeps, polish, stream)
-    "tnqs_jacobi_eigh": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (a, root, inv_root, sweeps, batch, n, max_sweeps, stream)
-    "tnqs_jacobi_pseudo_roots": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (a, w, v, sweeps, batch, n, max_sweeps, noise_floor, polish, stream)
+    "tnqs_jacobi_eigh": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # (a, root, inv_root, sweeps, batch, n, max_sweeps, noise_floor, stream)
+    "tnqs_jacobi_pseudo_roots": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # (t, messages, out, scratch, partial, V, chi, d, chunk, splits, stream)
     "tnqs_bp_outgoing_d3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (a, b, c, batch, n, k, m, stream)

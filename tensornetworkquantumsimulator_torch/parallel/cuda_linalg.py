@@ -40,6 +40,17 @@ eigh_launches = LaunchCounter("jacobi_eigh")
 # decades unconverged at n ≥ 32.
 MAX_SWEEPS = 30
 
+# Noise floors, in units of ε·‖A‖_F: a 2×2 block whose |d|, |c| and |b| are
+# all at most the floor is not rotated.  Rotating a rank-deficient matrix's
+# null-space blocks (pure rounding noise) at angles of order one refills
+# the couplings between range and null space and costs sweeps, so K1 skips
+# them: its clip zeroes every eigenvalue below 10·ε·λmax anyway.  K2 skips
+# nothing: the Gram split keeps eigenvalues down to 1e-10 of the trace,
+# far below 4·ε·‖A‖_F, and a skipped block of a kept and a dropped
+# eigenpair leaves the kept subspace off by an angle of order one.
+ROOTS_NOISE_FLOOR = 4.0
+EIGH_NOISE_FLOOR = 0.0
+
 # One CTA holds a matrix up to this n: both copies of A, V and a strip of
 # rotations per warp, 3·n²·8 + 32·(n/2)·16 bytes = 208 KB at n = 88, of the
 # 227 KB a block may use on an H100 (the reference's limit is the same 88).
@@ -165,7 +176,7 @@ def jacobi_pseudo_roots(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
     cuda_build.launch(
         "tnqs_jacobi_pseudo_roots", h.device, h.data_ptr(), root.data_ptr(),
         inv_root.data_ptr(), _sweeps_ptr(sweeps, B, h.device), B, n,
-        max_sweeps,
+        max_sweeps, ROOTS_NOISE_FLOOR,
     )
     roots_launches.count += 1
     return root, inv_root
@@ -184,7 +195,8 @@ def _launch_eigh(h: torch.Tensor, max_sweeps: int, polish: bool, sweeps):
     cuda_build.launch(
         "tnqs_jacobi_eigh", h.device, h.data_ptr(), w.data_ptr(),
         v.data_ptr(),
-        _sweeps_ptr(sweeps, B, h.device), B, n, max_sweeps, int(polish),
+        _sweeps_ptr(sweeps, B, h.device), B, n, max_sweeps, EIGH_NOISE_FLOOR,
+        int(polish),
     )
     eigh_launches.count += 1
     return w, v

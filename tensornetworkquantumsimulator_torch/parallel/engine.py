@@ -43,6 +43,7 @@ from .cuda_linalg import (
     hermitize,
     jacobi_eigh,
     jacobi_pseudo_roots,
+    library_qr,
     roots_kernel_supported,
 )
 from .structure import BatchedGraphSpec
@@ -111,12 +112,30 @@ def _chol_once(mat: torch.Tensor):
 def _householder_qr(mat: torch.Tensor):
     """The library QR of a batch.  A 32-bit batch on the CPU is factorized
     in 64 bits and cast back: MKL's complex64 QR returns NaN on columns
-    holding denormal entries, where XLA's stays finite."""
+    holding denormal entries, where XLA's stays finite.  On CUDA torch
+    takes cuBLAS's batched geqrf for a batch of small matrices, which
+    returns NaN for some rank-deficient matrices with zero columns (a
+    padded bond: heavy-hex at χ=3 on an H100): those are factorized again
+    (``_refactored``)."""
     if mat.device.type != "cpu" or _is_x64(mat):
-        return torch.linalg.qr(mat)
+        q, r = torch.linalg.qr(mat)
+        return _refactored(mat, q, r) if mat.is_cuda and mat.ndim == 3 \
+            else (q, r)
     wide = torch.complex128 if mat.is_complex() else torch.float64
     q, r = torch.linalg.qr(mat.to(wide))
     return q.to(mat.dtype), r.to(mat.dtype)
+
+
+def _refactored(mat: torch.Tensor, q: torch.Tensor, r: torch.Tensor):
+    """(q, r) of the batch ``mat`` [B, m, k] with every matrix whose
+    factors are not finite factorized again alone (``library_qr``: one
+    matrix per call, cuSOLVER's geqrf on CUDA).  One host read."""
+    bad = ~(torch.isfinite(q).flatten(1).all(1)
+            & torch.isfinite(r).flatten(1).all(1))
+    idx = bad.nonzero().flatten()
+    if idx.numel():
+        q[idx], r[idx] = library_qr(mat[idx])
+    return q, r
 
 
 def _qr_split(mat: torch.Tensor):

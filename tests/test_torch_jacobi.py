@@ -1,11 +1,12 @@
 """PyTorch port, the Jacobi kernels' schedule (K1 `jacobi_pseudo_roots`, K2
 `jacobi_eigh`, `csrc/jacobi.cu`) emulated in float32 numpy: the slot layout
 (pairs are always slots 2k, 2k+1; every element moves by `sigma` after a
-round), the rotation's guards, the skip of all-noise pairs, the per-matrix
-stopping test, and the epilogues (Newton-Schulz, Rayleigh quotient, sort,
-clip, roots).  The CUDA kernels run only on a GPU (`chip_smoke.py` holds
-them to the same bars there); this file shows that the algorithm they run
-meets the bars, and how many sweeps it takes, before any card is involved.
+round), the rotation's guards, the skip of pairs below each caller's noise
+floor (K1's; K2 has none), the per-matrix stopping test, and the epilogues
+(Newton-Schulz, Rayleigh quotient, sort, clip, roots).  The CUDA kernels
+run only on a GPU (`chip_smoke.py` holds them to the same bars there); this
+file shows that the algorithm they run meets the bars, and how many sweeps
+it takes, before any card is involved.
 """
 
 import numpy as np
@@ -13,8 +14,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import KEPT_BAR, kept_ratios
+
 from tensornetworkquantumsimulator_torch import set_default_device
 from tensornetworkquantumsimulator_torch.parallel import engine as te
+from tensornetworkquantumsimulator_torch.parallel.cuda_linalg import (
+    EIGH_NOISE_FLOOR, ONE_CTA_MAX_N, ROOTS_NOISE_FLOOR)
 from tensornetworkquantumsimulator_tpu.parallel import engine as je
 
 torch.set_num_threads(1)
@@ -45,25 +50,40 @@ def sigma(n):
     return s
 
 
+def pow2_floor(x):
+    """`pow2_floor`: 2^floor(log2 x) of a normal float32, 0 of a denormal."""
+    return (np.asarray(x, F).view(np.int32) & 0x7F800000).view(F)
+
+
+def pow2_recip(x):
+    """`pow2_recip`: 1 / pow2_floor(x) of a normal float32, 2^127 of a
+    denormal."""
+    return (np.int32(0x7F000000)
+            - (np.asarray(x, F).view(np.int32) & 0x7F800000)).view(F)
+
+
 def rotation(d, c, b, noise):
     """`rotation` of csrc/jacobi.cu on arrays: (cs, sn, u, m)."""
     bx, by = b.real.astype(F), b.imag.astype(F)
     m = np.maximum(np.abs(bx), np.abs(by))
     act = m > F(EPS * 0.03125) * (np.abs(d) + np.abs(c))
-    if noise is not None:  # a 2x2 block that is all noise is left alone
-        act &= np.maximum(np.maximum(np.abs(d), np.abs(c)), m) > noise
+    # a pivot below the normal range is left alone (its power-of-two
+    # scaling needs a normal m), as is a 2x2 block all at most the
+    # caller's noise floor
+    act &= m >= np.finfo(F).tiny
+    act &= np.maximum(np.maximum(np.abs(d), np.abs(c)), m) > noise
     ms = np.where(act, m, F(1))
     # idle lanes compute on a harmless block
     bx, by = np.where(act, bx, F(1)), np.where(act, by, F(0))
     d, c = np.where(act, d, F(0)), np.where(act, c, F(1))
-    pm = np.exp2(np.floor(np.log2(ms))).astype(F)  # exact power-of-two scale
-    x, y = bx / pm, by / pm
+    rm = pow2_recip(ms)  # exact power-of-two scale: the larger in [1, 2)
+    x, y = bx * rm, by * rm
     q = x * x + y * y
     ih = (F(1) / np.sqrt(q)).astype(F)
-    absb = q * ih * pm
+    absb = q * ih * pow2_floor(ms)
     g = F(0.5) * (c - d)
-    ps = np.exp2(np.floor(np.log2(np.maximum(np.abs(g), absb)))).astype(F)
-    gs, bs = np.abs(g) / ps, absb / ps
+    rs = pow2_recip(np.maximum(np.abs(g), absb))
+    gs, bs = np.abs(g) * rs, absb * rs
     r2 = gs * gs + bs * bs
     t = np.copysign(bs / (gs + r2 * (F(1) / np.sqrt(r2)).astype(F)), g)
     cs = (F(1) / np.sqrt(F(1) + t * t)).astype(F)
@@ -73,9 +93,10 @@ def rotation(d, c, b, noise):
             np.where(act, sn, F(0)).astype(F), u, m)
 
 
-def jacobi_emulated(a, max_sweeps=30, skip_noise=True):
+def jacobi_emulated(a, max_sweeps=30, noise_floor=EIGH_NOISE_FLOOR):
     """(w in index order, V, sweeps per matrix) as `jacobi_sweeps` computes
-    them, all arithmetic in float32."""
+    them, all arithmetic in float32; blocks all at most noise_floor·ε·‖A‖_F
+    are not rotated (K1 passes ROOTS_NOISE_FLOOR, K2 EIGH_NOISE_FLOOR)."""
     a = np.asarray(a, dtype=C)
     B, n, _ = a.shape
     h = n // 2
@@ -85,6 +106,7 @@ def jacobi_emulated(a, max_sweeps=30, skip_noise=True):
     idx = np.tile(np.arange(n), (B, 1))
     fro2 = (A.real.astype(F) ** 2 + A.imag.astype(F) ** 2).sum((1, 2), dtype=F)
     done_below = (F(4 * EPS) * np.sqrt(fro2))[:, None]
+    noise = (F(noise_floor) * F(EPS) * np.sqrt(fro2))[:, None]
     active = np.ones(B, bool)
     sweeps = np.zeros(B, int)
     kk = np.arange(h)
@@ -95,7 +117,9 @@ def jacobi_emulated(a, max_sweeps=30, skip_noise=True):
             d = A[:, 0::2, 0::2].real[:, kk, kk].astype(F)
             c = A[:, 1::2, 1::2].real[:, kk, kk].astype(F)
             b = A[:, 0::2, 1::2][:, kk, kk]
-            cs, sn, u, m = rotation(d, c, b, done_below if skip_noise else None)
+            if n > ONE_CTA_MAX_N:  # a cluster's pivot: the hermitian part
+                b = ((b + np.conj(A[:, 1::2, 0::2][:, kk, kk])) / 2).astype(C)
+            cs, sn, u, m = rotation(d, c, b, noise)
             big |= (m > done_below).any(1)
             on = active[:, None]  # a matrix that stopped is left as it is
             cs, sn, u = np.where(on, cs, F(1)), np.where(on, sn, F(0)), \
@@ -111,8 +135,11 @@ def jacobi_emulated(a, max_sweeps=30, skip_noise=True):
             Z[:, 0::2, :] = (csr * (ur * yp) - snr * yq).astype(C)
             Z[:, 1::2, :] = (snr * (ur * yp) + csr * yq).astype(C)
             # one CTA computes the blocks on one side of the diagonal and
-            # writes each with its conjugate transpose
-            Z = np.where(upper, Z, np.where(upper.T, np.conj(Z.swapaxes(1, 2)), Z))
+            # writes each with its conjugate transpose; a cluster computes
+            # every block
+            if n <= ONE_CTA_MAX_N:
+                Z = np.where(upper, Z,
+                             np.where(upper.T, np.conj(Z.swapaxes(1, 2)), Z))
             p, q = idx[:, None, 0::2], idx[:, None, 1::2]
             vp = np.take_along_axis(V, p, 2)
             vq = np.take_along_axis(V, q, 2)
@@ -147,7 +174,8 @@ def rayleigh(a, v):
 
 
 def eigh_emulated(a, **kw):
-    """K2 with its polish: (w ascending, V, sweeps)."""
+    """K2 with its polish: (w ascending, V, sweeps); no noise skip unless
+    ``noise_floor`` says otherwise."""
     _, v, sweeps = jacobi_emulated(a, **kw)
     v = newton_schulz(v)
     w = rayleigh(np.asarray(a, dtype=C), v)
@@ -156,9 +184,9 @@ def eigh_emulated(a, **kw):
             np.take_along_axis(v, order[:, None, :], -1), sweeps)
 
 
-def roots_emulated(a, **kw):
+def roots_emulated(a, noise_floor=ROOTS_NOISE_FLOOR, **kw):
     """K1: (root, inverse root, sweeps)."""
-    _, v, sweeps = jacobi_emulated(a, **kw)
+    _, v, sweeps = jacobi_emulated(a, noise_floor=noise_floor, **kw)
     v = newton_schulz(newton_schulz(v))
     w = rayleigh(np.asarray(a, dtype=C), v)
     wmax = np.abs(w).max(-1, keepdims=True)
@@ -185,23 +213,33 @@ def _batch(kind, n, B, rng):
                             + 1j * rng.standard_normal((B, n, n)))
         w = np.concatenate([np.logspace(0, -5, n - 2), [1e-9, 1e-9]])
         return _hermitize((q * w) @ _herm(q))
+    if kind == "graded":  # a Gram split's: n/4 kept, 1 ... 1e-6, null space
+        q, _ = np.linalg.qr(rng.standard_normal((B, n, n))
+                            + 1j * rng.standard_normal((B, n, n)))
+        w = np.concatenate([np.logspace(0, -6, n // 4), np.zeros(n - n // 4)])
+        return _hermitize((q * w) @ _herm(q))
     r = n if kind == "gram" else max(2, n // 4)  # "deficient": rank n/4
     x = rng.standard_normal((B, n, r)) + 1j * rng.standard_normal((B, n, r))
     return _hermitize(x @ _herm(x))
 
 
 def _eigh_errors(a, w, v):
+    """K2's bars: eigenvalues relative to the largest, reconstruction,
+    unitarity, then the kept eigenpairs' eigenvalue and subspace errors as
+    multiples of the library complex64 eigh's (chip_smoke.kept_ratios:
+    the eigenpairs a Gram split keeps, which a bar relative to the largest
+    eigenvalue cannot see)."""
     n = a.shape[-1]
-    a = a.astype(np.complex128)
-    w_ref = np.linalg.eigvalsh(a)
+    a128 = a.astype(np.complex128)
+    w_ref = np.linalg.eigvalsh(a128)
     e_w = np.abs(w - w_ref).max() / np.abs(w_ref).max()
-    e_rec = (np.linalg.norm((v * w[:, None, :]) @ _herm(v) - a)
-             / np.linalg.norm(a))
+    e_rec = (np.linalg.norm((v * w[:, None, :]) @ _herm(v) - a128)
+             / np.linalg.norm(a128))
     e_unit = np.abs(_herm(v).astype(np.complex128) @ v - np.eye(n)).max()
-    return e_w, e_rec, e_unit
+    return (e_w, e_rec, e_unit) + kept_ratios(a, w, v)
 
 
-KINDS = ("hermitian", "ill", "gram", "deficient")
+KINDS = ("hermitian", "ill", "gram", "deficient", "graded")
 
 
 @pytest.mark.parametrize("n", [4, 10, 40, 64, 88, 256])
@@ -223,12 +261,14 @@ def test_emulated_schedule_meets_the_bars(n, B, kind):
     every size, and K1's (|root^2 - A|/|A| < 2e-5) on the PSD batches."""
     a = _batch(kind, n, B, np.random.default_rng(1000 + n))
     w, v, sweeps = eigh_emulated(a)
-    e_w, e_rec, e_unit = _eigh_errors(a, w, v)
+    e_w, e_rec, e_unit, kept_w, kept_sub = _eigh_errors(a, w, v)
     assert np.all(np.diff(w, axis=-1) >= 0)
     assert max(e_w, e_rec, e_unit) < 2e-4, (e_w, e_rec, e_unit)
+    assert max(kept_w, kept_sub) <= KEPT_BAR, (kept_w, kept_sub)
     assert 2 <= sweeps.min() and sweeps.max() <= 14, sweeps
     print(f"{kind} n={n}: sweeps {sweeps}, eigenvalues {e_w:.1e}, "
-          f"reconstruction {e_rec:.1e}, unitarity {e_unit:.1e}")
+          f"reconstruction {e_rec:.1e}, unitarity {e_unit:.1e}, kept "
+          f"eigenvalues / subspace {kept_w:.2f} / {kept_sub:.2f} x library")
     if kind != "hermitian":
         root, inv_root, _ = roots_emulated(a)
         rec = (np.linalg.norm(root.astype(np.complex128) @ root - a)
@@ -240,23 +280,63 @@ def test_emulated_schedule_meets_the_bars(n, B, kind):
 
 @pytest.mark.parametrize("n,B", [(40, 12), (64, 12)])
 def test_noise_pairs_skipped_keeps_rank_deficient_sweeps_down(n, B):
-    """Rotating the null space's all-noise 2x2 blocks refills the couplings
-    between range and null space, and the pivots then shrink linearly: some
-    matrices of a rank-deficient batch take 1.5-2x the sweeps of a
-    full-rank one.  With those pairs skipped a rank-deficient batch takes
-    no more sweeps than a full-rank one, at the same accuracy."""
+    """K1's noise floor.  Rotating the null space's all-noise 2x2 blocks
+    refills the couplings between range and null space, and the pivots
+    then shrink linearly: with the blocks below ROOTS_NOISE_FLOOR·ε·‖A‖_F
+    skipped, a rank-deficient batch takes no more sweeps than a full-rank
+    one, and without the skip (K2's EIGH_NOISE_FLOOR, none) 3 sweeps more,
+    at most 3 above the full-rank batch.  Both meet the bars."""
     rng = np.random.default_rng(n)
     deficient, full = _batch("deficient", n, B, rng), _batch("gram", n, B, rng)
     _, _, s_full = jacobi_emulated(full)
-    w, v, s_skip = jacobi_emulated(deficient)
-    w0, v0, s_rot = jacobi_emulated(deficient, skip_noise=False)
+    w, v, s_skip = eigh_emulated(deficient, noise_floor=ROOTS_NOISE_FLOOR)
+    w0, v0, s_rot = eigh_emulated(deficient, noise_floor=EIGH_NOISE_FLOOR)
+    print(f"n={n} sweeps: full rank {sorted(s_full.tolist())}, rank n/4 "
+          f"with the floor {sorted(s_skip.tolist())}, without "
+          f"{sorted(s_rot.tolist())}")
     assert s_skip.max() <= s_full.max()
-    assert s_rot.max() >= s_skip.max() + 3, (s_rot, s_skip)
+    assert s_skip.max() + 3 <= s_rot.max() <= s_full.max() + 3, (s_rot, s_skip)
     for w_, v_ in ((w, v), (w0, v0)):
-        order = np.argsort(w_, -1)
-        errs = _eigh_errors(deficient, np.take_along_axis(w_, order, -1),
-                            np.take_along_axis(v_, order[:, None, :], -1))
-        assert max(errs) < 2e-4, errs
+        errs = _eigh_errors(deficient, w_, v_)
+        assert max(errs[:3]) < 2e-4, errs
+        assert max(errs[3:]) <= KEPT_BAR, errs
+
+
+@pytest.mark.parametrize("n,B", [(24, 12), (40, 8)])
+def test_noise_floor_loses_the_small_kept_eigenpairs(n, B):
+    """Why K2 has no noise floor: on a Gram split's graded spectrum (n/4
+    kept eigenvalues 1 ... 1e-6, then a null space) K1's floor, 4·ε·‖A‖_F,
+    leaves the blocks of the smallest kept eigenpairs and the null space
+    unrotated, and the kept subspace's error is past KEPT_BAR times the
+    library's; K2 (no floor) stays within it.  n = 24 is the Gram split's
+    size at χ = 6 (examples/ising_2d_dynamics.py on the fast stack)."""
+    a = _batch("graded", n, B, np.random.default_rng(n))
+    floored = kept_ratios(a, *eigh_emulated(
+        a, noise_floor=ROOTS_NOISE_FLOOR)[:2])
+    k2 = kept_ratios(a, *eigh_emulated(a)[:2])
+    print(f"n={n}: kept eigenvalues / subspace x library: with K1's floor "
+          f"{floored[0]:.2f} / {floored[1]:.2f}, K2 {k2[0]:.2f} / {k2[1]:.2f}")
+    assert floored[1] > KEPT_BAR, floored
+    assert max(k2) <= KEPT_BAR, k2
+
+
+def test_denormal_pivots_of_a_padded_block_stay_finite():
+    """K2 rotates every block, the null space's too, so it meets pivots
+    below float32's normal range (a zero-padded bond's block, d = c = 0,
+    with couplings at 1e-40): the power-of-two scaling of `rotation` would
+    turn one into 0 * inf.  Such a pivot is left alone; K1 and K2 stay
+    finite and exact on the range."""
+    n = 8
+    a = np.zeros((2, n, n), C)
+    a[:, np.arange(n // 2), np.arange(n // 2)] = np.logspace(0, -3, n // 2)
+    for p, q, x in ((4, 5, 1e-40), (6, 7, 3e-41j), (5, 6, 2e-40)):
+        a[:, p, q], a[:, q, p] = x, np.conj(x)
+    w, v, _ = eigh_emulated(a)
+    assert np.isfinite(w).all() and np.isfinite(v).all()
+    errs = _eigh_errors(a, w, v)
+    assert max(errs[:3]) < 1e-6 and max(errs[3:]) <= KEPT_BAR, errs
+    root, inv_root, _ = roots_emulated(a)
+    assert np.isfinite(root).all() and np.isfinite(inv_root).all()
 
 
 def test_identity_stops_after_one_sweep():

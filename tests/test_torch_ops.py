@@ -277,6 +277,30 @@ def test_batched_qr_split_finite_on_denormal_columns():
             atol=1e-6)
 
 
+def test_batched_qr_refactors_the_matrices_left_non_finite():
+    """On CUDA cuBLAS's batched QR returns NaN for some rank-deficient
+    matrices with zero columns (heavy-hex at χ=3 on an H100): the engine
+    factorizes each matrix whose factors are not finite again alone.  Here
+    the batched factors of a [32,9,6] batch with zero columns are spoilt by
+    hand: the spoilt matrices come back finite and exact, the others
+    untouched."""
+    from tensornetworkquantumsimulator_torch.parallel import engine as t_eng
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(32, 9, 2)) + 1j * rng.normal(size=(32, 9, 2))
+    mat = np.concatenate([x, x @ rng.normal(size=(32, 2, 2)),
+                          np.zeros((32, 9, 2))], axis=-1)
+    mat = torch.from_numpy(mat.astype(np.complex64))
+    q, r = torch.linalg.qr(mat)
+    q0, r0 = q.clone(), r.clone()
+    q[3, 0, 0] = r[7, 1, 1] = float("nan")
+    q, r = t_eng._refactored(mat, q, r)
+    assert torch.isfinite(q).all() and torch.isfinite(r).all()
+    np.testing.assert_allclose((q @ r).numpy(), mat.numpy(), atol=1e-5)
+    keep = [i for i in range(32) if i not in (3, 7)]
+    assert torch.equal(q[keep], q0[keep]) and torch.equal(r[keep], r0[keep])
+
+
 @pytest.mark.parametrize("dtype,tol", [(np.complex128, 1e-10),
                                        (np.complex64, 1e-5)])
 def test_eigendecomp_hermitian_matches_jax(dtype, tol):
