@@ -21,10 +21,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import Counter
 from . import cuda_build
-from .cuda_build import LaunchCounter
 
-bp_launches = LaunchCounter("bp_outgoing_d3")
+bp_launches = Counter("launches.bp_outgoing_d3")
 
 _TARGET_BLOCKS = 264  # two contraction CTAs per SM of an H100
 _SCRATCH_BUDGET = 64 << 20  # bytes of the per-chunk scratch (Y, then P)

@@ -55,18 +55,6 @@ build_seconds: float | None = None  # wall time of the build this process ran
 build_log: str = ""  # nvcc's stderr (ptxas register / shared-memory report)
 
 
-class LaunchCounter:
-    """Plain integer count of kernel launches, one per wrapper call that
-    reaches the kernel."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -26,12 +26,20 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
-from .cuda_build import LaunchCounter
 
 
-roots_launches = LaunchCounter("jacobi_pseudo_roots")
-eigh_launches = LaunchCounter("jacobi_eigh")
+# kernel launches, one per wrapper call that reaches the kernel (always
+# counted)
+roots_launches = profiling.Counter("launches.jacobi_pseudo_roots")
+eigh_launches = profiling.Counter("launches.jacobi_eigh")
+# while tracing: the Jacobi sweeps each launch's matrices ran (the kernel's
+# own count, summed on the device) and the matrices launched
+roots_sweeps = profiling.Counter("jacobi.roots_sweeps")
+roots_matrices = profiling.Counter("jacobi.roots_matrices")
+eigh_sweeps = profiling.Counter("jacobi.eigh_sweeps")
+eigh_matrices = profiling.Counter("jacobi.eigh_matrices")
 
 
 # Cap of the kernels' per-matrix convergence test: each matrix stops after
@@ -148,10 +156,12 @@ def _check_cuda_batch(h: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected [B, n, n], got {tuple(h.shape)}")
 
 
-def _sweeps_ptr(sweeps, batch: int, device) -> int:
-    """Device pointer of the optional per-matrix sweep counts (0: none)."""
+def _sweeps_ptr(sweeps, batch: int, device, counter) -> int:
+    """Device pointer of the per-matrix sweep counts: the caller's
+    ``sweeps``, else while tracing ``batch`` slots that ``counter`` adds up,
+    else 0 (none)."""
     if sweeps is None:
-        return 0
+        return counter.device_slots(batch, device)
     if (sweeps.dtype != torch.int32 or sweeps.shape != (batch,)
             or sweeps.device != device or not sweeps.is_contiguous()):
         raise ValueError(f"sweeps: expected a contiguous int32 [{batch}] on "
@@ -175,10 +185,13 @@ def jacobi_pseudo_roots(h: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
     inv_root = torch.empty_like(h)
     cuda_build.launch(
         "tnqs_jacobi_pseudo_roots", h.device, h.data_ptr(), root.data_ptr(),
-        inv_root.data_ptr(), _sweeps_ptr(sweeps, B, h.device), B, n,
-        max_sweeps, ROOTS_NOISE_FLOOR,
+        inv_root.data_ptr(), _sweeps_ptr(sweeps, B, h.device, roots_sweeps),
+        B, n, max_sweeps, ROOTS_NOISE_FLOOR,
     )
     roots_launches.count += 1
+    roots_matrices.add(B)
+    if sweeps is not None:
+        roots_sweeps.add_device(sweeps)
     return root, inv_root
 
 
@@ -194,11 +207,13 @@ def _launch_eigh(h: torch.Tensor, max_sweeps: int, polish: bool, sweeps):
     v = torch.empty_like(h)
     cuda_build.launch(
         "tnqs_jacobi_eigh", h.device, h.data_ptr(), w.data_ptr(),
-        v.data_ptr(),
-        _sweeps_ptr(sweeps, B, h.device), B, n, max_sweeps, EIGH_NOISE_FLOOR,
-        int(polish),
+        v.data_ptr(), _sweeps_ptr(sweeps, B, h.device, eigh_sweeps), B, n,
+        max_sweeps, EIGH_NOISE_FLOOR, int(polish),
     )
     eigh_launches.count += 1
+    eigh_matrices.add(B)
+    if sweeps is not None:
+        eigh_sweeps.add_device(sweeps)
     return w, v
 
 

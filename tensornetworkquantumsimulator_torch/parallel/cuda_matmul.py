@@ -25,10 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import Counter
 from . import cuda_build
-from .cuda_build import LaunchCounter
 
-matmul_launches = LaunchCounter("complex_matmul")
+matmul_launches = Counter("launches.complex_matmul")
 
 
 def _check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:

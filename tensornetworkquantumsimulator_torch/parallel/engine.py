@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
+from ..utils.profiling import Counter, span
 from .cuda_linalg import (
     clip_roots,
     eigh_plain,
@@ -50,6 +51,15 @@ from .structure import BatchedGraphSpec
 
 _LETTERS = string.ascii_lowercase
 _JACOBI_AUTO_MAX_N = 24
+
+# counted while tracing (``utils.profiling``): BP's sweeps; in a folded
+# ensemble the member-sweeps computed and those of members still running;
+# the program's own blocking host reads, by site
+_BP_SWEEPS = Counter("bp.sweeps")
+_MEMBER_SWEEPS_COMPUTED = Counter("bp.member_sweeps_computed")
+_MEMBER_SWEEPS_ACTIVE = Counter("bp.member_sweeps_active")
+_CONVERGE_READS = Counter("host.reads.bp.converge")
+_REFACTOR_READS = Counter("host.reads.qr.refactor")
 
 
 def _svd_alg() -> str:
@@ -72,11 +82,13 @@ def _use_jacobi(m: torch.Tensor) -> bool:
 
 
 def _eigh(m: torch.Tensor):
-    if _use_jacobi(m):
-        lead = m.shape[:-2]
-        w, v = jacobi_eigh(m.reshape((-1,) + m.shape[-2:]))
-        return w.reshape(lead + w.shape[-1:]), v.reshape(lead + v.shape[-2:])
-    return eigh_plain(m)
+    with span("linalg.eigh", m):
+        if _use_jacobi(m):
+            lead = m.shape[:-2]
+            w, v = jacobi_eigh(m.reshape((-1,) + m.shape[-2:]))
+            return (w.reshape(lead + w.shape[-1:]),
+                    v.reshape(lead + v.shape[-2:]))
+        return eigh_plain(m)
 
 
 def _ridged_cholesky(mat: torch.Tensor) -> torch.Tensor:
@@ -133,6 +145,7 @@ def _refactored(mat: torch.Tensor, q: torch.Tensor, r: torch.Tensor):
     bad = ~(torch.isfinite(q).flatten(1).all(1)
             & torch.isfinite(r).flatten(1).all(1))
     idx = bad.nonzero().flatten()
+    _REFACTOR_READS.add()
     if idx.numel():
         q[idx], r[idx] = library_qr(mat[idx])
     return q, r
@@ -345,20 +358,21 @@ def _outgoing_messages(state: BatchedState) -> torch.Tensor:
     choice by what the caller needs (a differentiable result), not a
     retreat from a failed launch; ``cuda_bp.bp_launches`` counts only the
     calls that reach the kernel."""
-    t = state.tensors
-    D = t.ndim - 2
-    recording = torch.is_grad_enabled() and (
-        t.requires_grad or state.messages.requires_grad)
-    if (os.environ.get("TNQS_BP_KERNEL", "0") == "1" and D == 3
-            and not recording):
-        from .cuda_bp import bp_kernel_supported, bp_outgoing_d3
+    with span("bp.messages"):
+        t = state.tensors
+        D = t.ndim - 2
+        recording = torch.is_grad_enabled() and (
+            t.requires_grad or state.messages.requires_grad)
+        if (os.environ.get("TNQS_BP_KERNEL", "0") == "1" and D == 3
+                and not recording):
+            from .cuda_bp import bp_kernel_supported, bp_outgoing_d3
 
-        chi, d = t.shape[1], t.shape[-1]
-        if bp_kernel_supported(D, chi, d, t.dtype, t.shape[0]) and all(
-            s == chi for s in t.shape[1:4]
-        ):
-            return bp_outgoing_d3(t, state.messages)
-    return outgoing_messages_einsum(t, state.messages)
+            chi, d = t.shape[1], t.shape[-1]
+            if bp_kernel_supported(D, chi, d, t.dtype, t.shape[0]) and all(
+                s == chi for s in t.shape[1:4]
+            ):
+                return bp_outgoing_d3(t, state.messages)
+        return outgoing_messages_einsum(t, state.messages)
 
 
 def _normalize_messages(m, mask, hermitize_: bool = True):
@@ -420,19 +434,28 @@ def _fixed_point(iterate, m, mask, maxiter, tolerance, damping,
     rows = m.shape[0] // members
     active = torch.ones(members, dtype=torch.bool, device=m.device)
     for _ in range(maxiter):
-        new = iterate(m)
-        if damping > 0:
-            new = _normalize_messages((1 - damping) * new + damping * m,
-                                      mask, hermitize_=False)
-        go = _message_distance(m, new, mask, members) > tolerance
-        if members > 1:
-            keep = active.repeat_interleave(rows)[:, None, None, None]
-            m = torch.where(keep, new, m)
-            active = active & go
-            go = active.any()
-        else:
-            m = new
-        if not bool(go):
+        with span("bp.sweep"):
+            new = iterate(m)
+            if damping > 0:
+                new = _normalize_messages((1 - damping) * new + damping * m,
+                                          mask, hermitize_=False)
+            go = _message_distance(m, new, mask, members) > tolerance
+            _BP_SWEEPS.add()
+            _MEMBER_SWEEPS_COMPUTED.add(members)
+            if members > 1:
+                # on the device: the members this sweep still moves
+                _MEMBER_SWEEPS_ACTIVE.add_device(active)
+                keep = active.repeat_interleave(rows)[:, None, None, None]
+                m = torch.where(keep, new, m)
+                active = active & go
+                go = active.any()
+            else:
+                _MEMBER_SWEEPS_ACTIVE.add()
+                m = new
+            with span("bp.converge_read"):
+                stop = not bool(go)
+            _CONVERGE_READS.add()
+        if stop:
             break
     return m
 
@@ -450,17 +473,18 @@ def bp_update(
     `abstractbeliefpropagationcache.jl:198-222`).  ``members`` > 1 runs an
     ensemble folded into the vertex axis (``tables`` then hold its offset
     neighbour tables), each member to its own stopping point."""
-    if tolerance is None:
-        tolerance = default_batched_tolerance(state.tensors.dtype)
-    if tables is None:
-        tables = graph_tables(spec, state.tensors.device)
+    with span("bp.update"):
+        if tolerance is None:
+            tolerance = default_batched_tolerance(state.tensors.dtype)
+        if tables is None:
+            tables = graph_tables(spec, state.tensors.device)
 
-    def iterate(m):
-        return bp_iteration(spec, state._replace(messages=m), tables)
+        def iterate(m):
+            return bp_iteration(spec, state._replace(messages=m), tables)
 
-    m = _fixed_point(iterate, state.messages, tables.mask, maxiter,
-                     tolerance, damping, members)
-    return state._replace(messages=m)
+        m = _fixed_point(iterate, state.messages, tables.mask, maxiter,
+                         tolerance, damping, members)
+        return state._replace(messages=m)
 
 
 # ---------------------------------------------------------------------------
@@ -475,14 +499,15 @@ def _pseudo_roots(m: torch.Tensor):
     On the Jacobi path the whole stage runs as one K1 launch
     (``cuda_linalg.jacobi_pseudo_roots``) when its shape gate admits n;
     ``TNQS_ROOTS_FUSED=0`` keeps the K2 eigh + PyTorch reconstruction."""
-    m = hermitize(m)
-    n = m.shape[-1]
-    if _use_jacobi(m) and os.environ.get("TNQS_ROOTS_FUSED", "1") != "0":
-        flat = m.reshape((-1,) + m.shape[-2:])
-        if roots_kernel_supported(n, flat.shape[0]):
-            root, inv_root = jacobi_pseudo_roots(flat)
-            return root.reshape(m.shape), inv_root.reshape(m.shape)
-    return clip_roots(*_eigh(m))
+    with span("linalg.roots", m):
+        m = hermitize(m)
+        n = m.shape[-1]
+        if _use_jacobi(m) and os.environ.get("TNQS_ROOTS_FUSED", "1") != "0":
+            flat = m.reshape((-1,) + m.shape[-2:])
+            if roots_kernel_supported(n, flat.shape[0]):
+                root, inv_root = jacobi_pseudo_roots(flat)
+                return root.reshape(m.shape), inv_root.reshape(m.shape)
+        return clip_roots(*_eigh(m))
 
 
 # ---------------------------------------------------------------------------
@@ -508,10 +533,11 @@ def _gate_bucket_update(state, gate, u_idx, v_idx, slot_u, slot_v, chi,
         state.messages[u_idx], state.messages[v_idx],
         gate, slot_u, slot_v, chi, cutoff, normalize_tensors,
     )
-    tensors = state.tensors.clone()
-    messages = state.messages.clone()
-    _write_back(tensors, messages, u_idx, v_idx, slot_u, slot_v,
-                tu_new, tv_new, msg)
+    with span("su.finish"):
+        tensors = state.tensors.clone()
+        messages = state.messages.clone()
+        _write_back(tensors, messages, u_idx, v_idx, slot_u, slot_v,
+                    tu_new, tv_new, msg)
     return BatchedState(tensors, messages), err
 
 
@@ -558,35 +584,40 @@ def _simple_update_core(tu, tv, mu, mv, gate, slot_u, slot_v, chi, cutoff,
     restore with 1/√env.  Returns ``(tu_new, tv_new, message, err)``."""
     D = tu.ndim - 2
     d = tu.shape[-1]
-    env = torch.stack(
-        [mu[:, k] for k in range(D) if k != slot_u]
-        + [mv[:, k] for k in range(D) if k != slot_v], dim=0,
-    )  # [2(D-1), B, χ, χ]
-    roots, inv_roots = _pseudo_roots(env)
+    with span("su.roots"):
+        env = torch.stack(
+            [mu[:, k] for k in range(D) if k != slot_u]
+            + [mv[:, k] for k in range(D) if k != slot_v], dim=0,
+        )  # [2(D-1), B, χ, χ]
+        roots, inv_roots = _pseudo_roots(env)
 
-    tp_u = _su_prep(tu, slot_u, roots[: D - 1], chi, d)
-    tp_v = _su_prep(tv, slot_v, roots[D - 1:], chi, d)
-    B = tp_u.shape[0]
-    q_all, r_all, deferred = _qr_reduce(torch.cat([tp_u, tp_v], dim=0))
-    ru = r_all[:B].reshape(B, -1, chi, d)
-    rv = r_all[B:].reshape(B, -1, chi, d)
-    mat, r1, r2 = _theta(ru, rv, gate)
-    x, y, s_kept, err = _su_split(mat, chi, d, cutoff)
+    with span("su.qr"):
+        tp_u = _su_prep(tu, slot_u, roots[: D - 1], chi, d)
+        tp_v = _su_prep(tv, slot_v, roots[D - 1:], chi, d)
+        B = tp_u.shape[0]
+        q_all, r_all, deferred = _qr_reduce(torch.cat([tp_u, tp_v], dim=0))
+    with span("su.theta"):
+        ru = r_all[:B].reshape(B, -1, chi, d)
+        rv = r_all[B:].reshape(B, -1, chi, d)
+        mat, r1, r2 = _theta(ru, rv, gate)
+    with span("su.split"):
+        x, y, s_kept, err = _su_split(mat, chi, d, cutoff)
 
-    fac_u = x.reshape(B, r1, d, chi)
-    fac_v = y.transpose(1, 2).reshape(B, r2, d, chi)
-    if deferred:  # q is the raw tall matrix; undo R on the factor
-        fac_u = _rinv_left(r_all[:B], fac_u.reshape(B, r1, d * chi)
-                           ).reshape(B, r1, d, chi)
-        fac_v = _rinv_left(r_all[B:], fac_v.reshape(B, r2, d * chi)
-                           ).reshape(B, r2, d, chi)
-    tu_new = _su_finish(q_all[:B], fac_u, inv_roots[: D - 1], slot_u, tu,
-                        chi, d)
-    tv_new = _su_finish(q_all[B:], fac_v, inv_roots[D - 1:], slot_v, tv,
-                        chi, d)
-    msg = _edge_message(s_kept, normalize_tensors, mat.dtype)
-    if normalize_tensors:
-        tu_new, tv_new = _normalize_rows(tu_new), _normalize_rows(tv_new)
+    with span("su.finish"):
+        fac_u = x.reshape(B, r1, d, chi)
+        fac_v = y.transpose(1, 2).reshape(B, r2, d, chi)
+        if deferred:  # q is the raw tall matrix; undo R on the factor
+            fac_u = _rinv_left(r_all[:B], fac_u.reshape(B, r1, d * chi)
+                               ).reshape(B, r1, d, chi)
+            fac_v = _rinv_left(r_all[B:], fac_v.reshape(B, r2, d * chi)
+                               ).reshape(B, r2, d, chi)
+        tu_new = _su_finish(q_all[:B], fac_u, inv_roots[: D - 1], slot_u, tu,
+                            chi, d)
+        tv_new = _su_finish(q_all[B:], fac_v, inv_roots[D - 1:], slot_v, tv,
+                            chi, d)
+        msg = _edge_message(s_kept, normalize_tensors, mat.dtype)
+        if normalize_tensors:
+            tu_new, tv_new = _normalize_rows(tu_new), _normalize_rows(tv_new)
     return tu_new, tv_new, msg, err
 
 
@@ -610,21 +641,23 @@ def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
     group share ONE stacked eigh, ONE stacked QR and ONE stacked split;
     ``TNQS_FUSE_BUCKETS=0`` (or a single bucket) runs per-bucket updates.
     Bucket indices may be static tuples or device tensors."""
-    buckets = list(buckets)
-    if not buckets:
-        return state, torch.zeros((0,), device=state.tensors.device)
-    if os.environ.get("TNQS_FUSE_BUCKETS", "1") == "0" or len(buckets) == 1:
-        errs = []
-        dev = state.tensors.device
-        for b in buckets:
-            state, err = _gate_bucket_update(
-                state, gate, _index(b.u_idx, dev), _index(b.v_idx, dev),
-                b.slot_u, b.slot_v, chi, cutoff, normalize_tensors,
-            )
-            errs.append(err)
-        return state, torch.cat(errs)
-    return _fused_color_group(state, buckets, gate, chi, cutoff,
-                              normalize_tensors)
+    with span("su.group"):
+        buckets = list(buckets)
+        if not buckets:
+            return state, torch.zeros((0,), device=state.tensors.device)
+        if (os.environ.get("TNQS_FUSE_BUCKETS", "1") == "0"
+                or len(buckets) == 1):
+            errs = []
+            dev = state.tensors.device
+            for b in buckets:
+                state, err = _gate_bucket_update(
+                    state, gate, _index(b.u_idx, dev), _index(b.v_idx, dev),
+                    b.slot_u, b.slot_v, chi, cutoff, normalize_tensors,
+                )
+                errs.append(err)
+            return state, torch.cat(errs)
+        return _fused_color_group(state, buckets, gate, chi, cutoff,
+                                  normalize_tensors)
 
 
 def _su_prep(t, slot, roots_slice, chi, d):
@@ -697,54 +730,64 @@ def _fused_group_core(state, items, gate, chi, cutoff, normalize_tensors):
     order."""
     D = state.degree
     d = state.tensors.shape[-1]
-    envs = [
-        torch.stack([mu[:, k] for k in range(D) if k != su]
-                    + [mv[:, k] for k in range(D) if k != sv], dim=0)
-        for (su, sv, _tu, _tv, mu, mv) in items
-    ]  # each [2(D-1), B_b, χ, χ]
-    sizes = [e.shape[1] for e in envs]
-    offs = np.cumsum([0] + sizes)
-    roots_all, inv_roots_all = _pseudo_roots(torch.cat(envs, dim=1))
+    with span("su.roots"):
+        envs = [
+            torch.stack([mu[:, k] for k in range(D) if k != su]
+                        + [mv[:, k] for k in range(D) if k != sv], dim=0)
+            for (su, sv, _tu, _tv, mu, mv) in items
+        ]  # each [2(D-1), B_b, χ, χ]
+        sizes = [e.shape[1] for e in envs]
+        offs = np.cumsum([0] + sizes)
+        roots_all, inv_roots_all = _pseudo_roots(torch.cat(envs, dim=1))
 
-    tps = []
-    for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
-        roots = roots_all[:, offs[i]: offs[i + 1]]
-        tps += [_su_prep(tu, su, roots[: D - 1], chi, d),
-                _su_prep(tv, sv, roots[D - 1:], chi, d)]
-    q_all, r_all, deferred = _qr_reduce(torch.cat(tps, dim=0))
+    with span("su.qr"):
+        tps = []
+        for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
+            roots = roots_all[:, offs[i]: offs[i + 1]]
+            tps += [_su_prep(tu, su, roots[: D - 1], chi, d),
+                    _su_prep(tv, sv, roots[D - 1:], chi, d)]
+        q_all, r_all, deferred = _qr_reduce(torch.cat(tps, dim=0))
 
-    mats, shapes = [], []
-    for i, B in enumerate(sizes):
-        off = 2 * offs[i]
-        ru = r_all[off: off + B].reshape(B, -1, chi, d)
-        rv = r_all[off + B: off + 2 * B].reshape(B, -1, chi, d)
-        mat, r1, r2 = _theta(ru, rv, gate)
-        mats.append(mat)
-        shapes.append((r1, r2))
-    x_all, y_all, s_all, err_all = _su_split(torch.cat(mats, dim=0), chi, d,
-                                             cutoff)
+    with span("su.theta"):
+        mats, shapes = [], []
+        for i, B in enumerate(sizes):
+            off = 2 * offs[i]
+            ru = r_all[off: off + B].reshape(B, -1, chi, d)
+            rv = r_all[off + B: off + 2 * B].reshape(B, -1, chi, d)
+            mat, r1, r2 = _theta(ru, rv, gate)
+            mats.append(mat)
+            shapes.append((r1, r2))
+    with span("su.split"):
+        x_all, y_all, s_all, err_all = _su_split(torch.cat(mats, dim=0), chi,
+                                                 d, cutoff)
 
-    results = []
-    for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
-        B, off, (r1, r2) = sizes[i], offs[i], shapes[i]
-        sl = slice(off, off + B)
-        inv_roots = inv_roots_all[:, sl]
-        q_u, q_v = q_all[2 * off: 2 * off + B], q_all[2 * off + B: 2 * off + 2 * B]
-        fac_u = x_all[sl].reshape(B, r1, d, chi)
-        fac_v = y_all[sl].transpose(1, 2).reshape(B, r2, d, chi)
-        if deferred:  # q is the raw tall matrix; undo R on the factor
-            r_u = r_all[2 * off: 2 * off + B]
-            r_v = r_all[2 * off + B: 2 * off + 2 * B]
-            fac_u = _rinv_left(r_u, fac_u.reshape(B, r1, d * chi)
-                               ).reshape(B, r1, d, chi)
-            fac_v = _rinv_left(r_v, fac_v.reshape(B, r2, d * chi)
-                               ).reshape(B, r2, d, chi)
-        tu_new = _su_finish(q_u, fac_u, inv_roots[: D - 1], su, tu, chi, d)
-        tv_new = _su_finish(q_v, fac_v, inv_roots[D - 1:], sv, tv, chi, d)
-        msg = _edge_message(s_all[sl], normalize_tensors, state.messages.dtype)
-        if normalize_tensors:
-            tu_new, tv_new = _normalize_rows(tu_new), _normalize_rows(tv_new)
-        results.append((tu_new, tv_new, msg, err_all[sl]))
+    with span("su.finish"):
+        results = []
+        for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
+            B, off, (r1, r2) = sizes[i], offs[i], shapes[i]
+            sl = slice(off, off + B)
+            inv_roots = inv_roots_all[:, sl]
+            q_u = q_all[2 * off: 2 * off + B]
+            q_v = q_all[2 * off + B: 2 * off + 2 * B]
+            fac_u = x_all[sl].reshape(B, r1, d, chi)
+            fac_v = y_all[sl].transpose(1, 2).reshape(B, r2, d, chi)
+            if deferred:  # q is the raw tall matrix; undo R on the factor
+                r_u = r_all[2 * off: 2 * off + B]
+                r_v = r_all[2 * off + B: 2 * off + 2 * B]
+                fac_u = _rinv_left(r_u, fac_u.reshape(B, r1, d * chi)
+                                   ).reshape(B, r1, d, chi)
+                fac_v = _rinv_left(r_v, fac_v.reshape(B, r2, d * chi)
+                                   ).reshape(B, r2, d, chi)
+            tu_new = _su_finish(q_u, fac_u, inv_roots[: D - 1], su, tu, chi,
+                                d)
+            tv_new = _su_finish(q_v, fac_v, inv_roots[D - 1:], sv, tv, chi,
+                                d)
+            msg = _edge_message(s_all[sl], normalize_tensors,
+                                state.messages.dtype)
+            if normalize_tensors:
+                tu_new = _normalize_rows(tu_new)
+                tv_new = _normalize_rows(tv_new)
+            results.append((tu_new, tv_new, msg, err_all[sl]))
     return results
 
 
@@ -763,16 +806,17 @@ def _fused_color_group(state, buckets, gate, chi, cutoff, normalize_tensors):
         idxs.append((u_idx, v_idx))
     results = _fused_group_core(state, items, gate, chi, cutoff,
                                 normalize_tensors)
-    tensors = state.tensors.clone()
-    messages = state.messages.clone()
-    errs = []
-    for b, (u_idx, v_idx), (tu_new, tv_new, msg, err) in zip(
-        buckets, idxs, results
-    ):
-        _write_back(tensors, messages, u_idx, v_idx, b.slot_u, b.slot_v,
-                    tu_new, tv_new, msg)
-        errs.append(err)
-    return BatchedState(tensors, messages), torch.cat(errs)
+    with span("su.finish"):
+        tensors = state.tensors.clone()
+        messages = state.messages.clone()
+        errs = []
+        for b, (u_idx, v_idx), (tu_new, tv_new, msg, err) in zip(
+            buckets, idxs, results
+        ):
+            _write_back(tensors, messages, u_idx, v_idx, b.slot_u, b.slot_v,
+                        tu_new, tv_new, msg)
+            errs.append(err)
+        return BatchedState(tensors, messages), torch.cat(errs)
 
 
 def _bucket_updates(state, items, gate, chi, cutoff, normalize_tensors):
@@ -859,11 +903,12 @@ def local_rdms(spec: BatchedGraphSpec, state: BatchedState) -> torch.Tensor:
 def local_expectations(spec: BatchedGraphSpec, state: BatchedState,
                        op) -> torch.Tensor:
     """⟨op⟩ for every vertex (single-site observables, `expect.jl:58-83`)."""
-    rho = local_rdms(spec, state)  # [V, s(ket), z(bra)]
-    op = torch.as_tensor(op).to(dtype=rho.dtype, device=rho.device)
-    numer = torch.einsum("vsz,zs->v", rho, op)
-    denom = torch.einsum("vss->v", rho)
-    return numer / denom
+    with span("readout"):
+        rho = local_rdms(spec, state)  # [V, s(ket), z(bra)]
+        op = torch.as_tensor(op).to(dtype=rho.dtype, device=rho.device)
+        numer = torch.einsum("vsz,zs->v", rho, op)
+        denom = torch.einsum("vss->v", rho)
+        return numer / denom
 
 
 def _site_transfer(state: BatchedState, idx: torch.Tensor, skip_slot: int):

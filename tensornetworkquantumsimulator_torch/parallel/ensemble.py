@@ -36,6 +36,7 @@ from torch import nn
 
 from ..devices import resolve_device
 from ..models.gates import _kron_pauli
+from ..utils.profiling import span
 from .engine import (
     BatchedState,
     GraphTables,
@@ -349,6 +350,10 @@ class FieldLayer(nn.Module):
         return unfold_members(out, E), errs
 
     def _run(self, state, E, site, bond, noise):
+        with span("layer"):
+            return self._layer(state, E, site, bond, noise)
+
+    def _layer(self, state, E, site, bond, noise):
         V = self.spec.num_vertices
         dtype = state.tensors.dtype
         tables = member_tables(GraphTables(self.nbr, self.nbr_slot,

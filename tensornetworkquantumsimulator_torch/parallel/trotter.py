@@ -30,6 +30,7 @@ from ..models import channels as _channels
 from ..models import gates as _gates
 from ..utils.graphs import NamedGraph
 from ..utils.lattices import _gate_vertices
+from ..utils.profiling import span
 from .engine import (
     BatchedState,
     GraphTables,
@@ -257,6 +258,10 @@ class TrotterLayer(nn.Module):
         return unfold_members(state, E), errs
 
     def _run(self, state: BatchedState, E: int):
+        with span("layer"):
+            return self._layer(state, E)
+
+    def _layer(self, state: BatchedState, E: int):
         V = self.spec.num_vertices
         tables = member_tables(GraphTables(self.nbr, self.nbr_slot, self.mask),
                                E, V)

@@ -13,6 +13,7 @@ import torch
 
 import tensornetworkquantumsimulator_torch as tt
 from tensornetworkquantumsimulator_torch import set_default_device
+from tensornetworkquantumsimulator_torch.utils import profiling
 from tensornetworkquantumsimulator_torch.utils.profiling import (
     ApplyConfig,
     BPUpdateConfig,
@@ -47,19 +48,22 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 def test_trace_defaults_to_the_reference_directory(tmp_path, monkeypatch):
     """With no argument ``trace`` writes under ``/tmp/tnqs-trace``, the JAX
     package's default, not under the working directory.  The directory it
-    creates and the file it exports are recorded, not written, so the test
-    writes nothing outside its own temporary directory."""
+    creates and the files it exports (the profiler's trace, the program's
+    spans and counters) are recorded, not written, so the test writes
+    nothing outside its own temporary directory."""
     monkeypatch.chdir(tmp_path)
     made, exported = [], []
     monkeypatch.setattr(os, "makedirs", lambda d, **kw: made.append(d))
     monkeypatch.setattr(torch.profiler.profile, "export_chrome_trace",
                         lambda self, path: exported.append(path))
+    monkeypatch.setattr(profiling.Tracing, "export",
+                        lambda self, log_dir: exported.append(log_dir))
     with trace() as where:
         torch.ones(8, 8) @ torch.ones(8, 8)
     reference = inspect.signature(j_profiling.trace).parameters["log_dir"]
     assert where == "/tmp/tnqs-trace" == reference.default
     assert made == [where]
-    assert exported == [os.path.join(where, "trace.json")]
+    assert exported == [os.path.join(where, "trace.json"), where]
     assert list(tmp_path.iterdir()) == []
 
 
