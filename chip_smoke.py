@@ -36,7 +36,10 @@ Phases, each printing its checks and seconds:
    Gram split's n=256 batches, ⟨Z⟩ must agree with the kernels-off run to
    1e-4, and the recorded inputs are checked as in phase 3;
 5. physics: 3x3 TFIM at χ=8, cutoff 0, complex64, BP ⟨Z⟩ against the
-   dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4;
+   dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4; then the
+   ``[su_graphs]`` line: the field layer at the benchmark quench's shape,
+   its update replayed as CUDA graphs against the eager update (host ms
+   per step, the replay share after two warm-up steps, max |Δ⟨Z⟩|);
 6. ``rolled``: the bench's headline ``chi10_rolled`` (bench.py:219-262),
    the parametric field layer on the 5x5 grid at χ=10 with 64 rolled angle
    sets, 10 layers; K1 and K2 must launch, ⟨Z⟩ kernels on vs off to 1e-4,
@@ -238,14 +241,17 @@ measure, loops, variational and its no-grad energy, generic,
 generic_bmps, examples, examples_fast_stack, sharded_chi32, sharded_2d,
 sharded_heavyhex) runs with
 every launch
-counter set to 0 just before it and read just after.  The line before the last is ``{"kernels": [...]}`` (with launches per path
+counter set to 0 just before it and read just after, and logs what the
+update's CUDA graphs did over it (keys captured and refused, updates
+replayed and eager) and the device's memory peak.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 when no CUDA device is visible.
 
-Three diagnostic modes print one JSON line instead:
+Four diagnostic modes print one JSON line instead (``--su-graphs`` the
+``[su_graphs]`` line alone):
 ``--time-bmps ROOT`` times the boundary-MPS calls of ``measure`` with the
 package of the tree at ROOT (run it on two trees, alternating, to compare
 them on one card), ``--fast-stack CHI`` prints how far each knob stack
@@ -516,7 +522,7 @@ def check_k1(dev, rng, cl) -> list:
     return entries
 
 
-# K2's bar on the eigenpairs a Gram split keeps (engine._su_split): in
+# K2's bar on the eigenpairs a Gram split keeps (engine._su_truncate): in
 # descending order, those whose tail sum of |w| is above KEPT_CUTOFF of the
 # total, at most n/4 (χ: the split's Gram matrix is d·χ = 2χ wide on each
 # side of a d = 2 bond, n = 24, 40, 256 at χ = 6, 10, 64).  A bar relative
@@ -852,14 +858,43 @@ def run_layers(tt, dev, name, n, env):
     return z
 
 
+def graph_calls() -> dict:
+    """What the update's CUDA graphs (``su_graphs``) did since their cache
+    was last emptied: keys, keys captured and keys whose capture was
+    refused (each also warns), and the updates replayed and run eagerly
+    through them (a captured key's first call is eager; updates whose route
+    takes no graphs are not counted)."""
+    from tensornetworkquantumsimulator_torch.parallel import su_graphs
+
+    entries = list(su_graphs._cache.values())
+    captured = [e for e in entries if e.stretches]
+    return {"keys": len(entries), "captured": len(captured),
+            "refused": sum(e.failed for e in entries),
+            "replayed": sum(e.calls - 1 for e in captured),
+            "eager": sum(e.calls for e in entries)
+            - sum(e.calls - 1 for e in captured)}
+
+
 def counted(counters, name, required, run):
     """Run one main path with every launch counter at 0 just before it;
     return (launches just after, what ``run`` returned), and fail if a
-    required kernel never launched."""
+    required kernel never launched.  Logs the update graphs' calls over the
+    path (:func:`graph_calls`, their cache emptied first) and the device's
+    memory peak, allocated and reserved (the graphs' pool included)."""
+    from tensornetworkquantumsimulator_torch.parallel import su_graphs
+
     for c in counters.values():
         c.reset()
+    su_graphs._cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     out = run()
     launches = {k: c.count for k, c in counters.items()}
+    torch.cuda.synchronize()
+    log(name, f"update graphs {graph_calls()}; device memory peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"allocated, {torch.cuda.max_memory_reserved() / 2**20:.1f} "
+              f"MiB reserved")
     for k in required:
         assert launches[k] > 0, f"{name}: kernel {k} was never launched"
     return launches, out
@@ -903,6 +938,67 @@ def physics_check(tt, dev):
     assert dz <= 1e-4, f"3x3 dense oracle: max |dZ| {dz:.3e} > 1e-4"
     log("physics", f"3x3 TFIM chi=8 c64, 3 layers: BP <Z> {traj} vs dense "
                    f"{[round(x, 7) for x in golden]}: max |dZ| {dz:.2e} (bar 1e-4)")
+
+
+def su_graphs_line(tt, dev, card) -> dict:
+    """The field layer at the benchmark quench's shape (5x5, χ=10,
+    complex64, cutoff 1e-10, BP 25 sweeps at 1e-5, the fast stack; hx=1.0,
+    hz=0.8, J=0.5, dt=0.25), 22 steps from |0…0⟩ with ⟨Z⟩ read to the host
+    after each, its update replayed as CUDA graphs against the eager update
+    (``su_graphs``' capture check patched to refuse): host ms of the layer
+    call and wall ms of the step (medians of steps 3-22), the replay share
+    of those steps (replays / (replays + eager updates)) and max |Δ⟨Z⟩|
+    over all 22 steps."""
+    from tensornetworkquantumsimulator_torch.parallel import su_graphs
+    from tensornetworkquantumsimulator_torch.utils import profiling
+
+    g = tt.named_grid((5, 5))
+    spec, state0 = tt.batched_product_state(g, chi=10, dtype=torch.complex64,
+                                            device=dev)
+    _, layer = tt.parallel.make_field_layer_fn(
+        g, 10, site_pauli=("X", "Z"), cutoff=1e-10, bp_maxiter=25,
+        bp_tolerance=1e-5, spec=spec, device=dev)
+    V, Eb = spec.num_vertices, len(spec.edges)
+    site = torch.tensor([[0.5] * V, [0.4] * V], dtype=torch.float64,
+                        device=dev)
+    bond = torch.full((Eb,), 0.25, dtype=torch.float64, device=dev)
+    z_op = tt.op_matrix("Z", 2)
+
+    def run():
+        state, zs, host, wall = state0, [], [], []
+        with profiling.tracing() as handle:
+            for step in range(22):
+                if step == 2:
+                    before = dict(handle.collect()["counters"])
+                t0 = time.perf_counter()
+                state, _ = layer(state, site, bond)
+                t1 = time.perf_counter()
+                zs.append(tt.local_expectations(spec, state, z_op).real.cpu())
+                host.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            after = handle.collect()["counters"]
+        moved = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("su.graph.replays", "su.graph.eager")}
+        calls = moved["su.graph.replays"] / 3 + moved["su.graph.eager"]
+        return (torch.stack(zs), float(np.median(host[2:])),
+                float(np.median(wall[2:])),
+                moved["su.graph.replays"] / 3 / calls if calls else 0.0)
+
+    with knobs(FAST_STACK):
+        z_graph, host_g, wall_g, share_g = run()
+        with patched(su_graphs, "_capturable", lambda device: False):
+            z_eager, host_e, wall_e, share_e = run()
+    dz = float((z_graph - z_eager).abs().max())
+    out = {"host_ms": [host_g, host_e], "wall_ms": [wall_g, wall_e],
+           "replay_share": [share_g, share_e], "max_abs_dz": dz, "card": card}
+    log("su_graphs", f"5x5 chi=10 c64 field layer, graphs / eager: host ms "
+                     f"per layer call {host_g:.2f} / {host_e:.2f}, wall ms per "
+                     f"step {wall_g:.2f} / {wall_e:.2f}; replay share after 2 "
+                     f"warm-up steps {share_g:.3f} / {share_e:.3f}; max "
+                     f"|dZ| over 22 steps {dz:.2e} ({card})")
+    assert share_g == 1.0 and share_e == 0.0, (share_g, share_e)
+    assert dz <= 1e-6, f"su_graphs: graphs vs eager max |dZ| {dz:.3e} > 1e-6"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3899,8 +3995,9 @@ def main() -> int:
         del seen
         done(name)
 
-    # 5. absolute physics
+    # 5. absolute physics; the update's CUDA graphs against the eager update
     physics_check(tt, dev)
+    su_graphs_line(tt, dev, smi or kind)
     done("physics")
 
     # 6-7. the rolled headline and the bond observables on its state
@@ -4137,4 +4234,11 @@ if __name__ == "__main__":
         sys.exit(fast_stack_moves(int(sys.argv[2])))
     if sys.argv[1:2] == ["--kept-bar"]:
         sys.exit(kept_bar(sys.argv[2]))
+    if sys.argv[1:2] == ["--su-graphs"]:
+        sys.path.insert(0, str(REPO))
+        import tensornetworkquantumsimulator_torch as _tt
+
+        print(json.dumps(su_graphs_line(_tt, _tt.select_device("cuda"),
+                                        card_line())), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -23,7 +23,9 @@ QR-reduce; ``TNQS_FUSE_BUCKETS`` (1) stacks the buckets of a colour group;
 
 On a CUDA device every matmul runs in full float32 (no TF32), as the
 reference runs every einsum at ``Precision.HIGHEST``:
-:func:`tensornetworkquantumsimulator_torch.select_device` sets that.
+:func:`tensornetworkquantumsimulator_torch.select_device` sets that.  There,
+on a route that reads nothing back to the host, the colour-group update
+replays as CUDA graphs (``su_graphs``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from .cuda_linalg import (
     library_qr,
     roots_kernel_supported,
 )
+from . import su_graphs
 from .structure import BatchedGraphSpec
 
 _LETTERS = string.ascii_lowercase
@@ -70,11 +73,15 @@ def _is_x64(m: torch.Tensor) -> bool:
     return m.dtype in (torch.complex128, torch.float64)
 
 
+def _eigh_alg() -> str:
+    return os.environ.get("TNQS_EIGH_ALG", "default")
+
+
 def _use_jacobi(m: torch.Tensor) -> bool:
     """The reference's routing rule (engine.py:74-82): ``jacobi`` always,
     ``auto`` for n ≤ 24 on the accelerator; never for 64-bit dtypes (the
     kernels compute in f32 and would drop ~8 digits)."""
-    alg = os.environ.get("TNQS_EIGH_ALG", "default")
+    alg = _eigh_alg()
     return m.ndim >= 3 and not _is_x64(m) and (
         alg == "jacobi"
         or (alg == "auto" and m.shape[-1] <= _JACOBI_AUTO_MAX_N and m.is_cuda)
@@ -151,8 +158,12 @@ def _refactored(mat: torch.Tensor, q: torch.Tensor, r: torch.Tensor):
     return q, r
 
 
+def _qr_alg() -> str:
+    return os.environ.get("TNQS_QR_ALG", "default")
+
+
 def _qr_split(mat: torch.Tensor):
-    alg = os.environ.get("TNQS_QR_ALG", "default")
+    alg = _qr_alg()
     if alg == "cholqr1":
         return _chol_once(mat)
     if alg == "cholqr2":
@@ -173,7 +184,7 @@ def _qr_reduce(mat: torch.Tensor):
     ``deferred=True`` → ``q`` IS the input and the caller left-solves the
     small factors against upper-triangular ``r`` (:func:`_rinv_left`)
     before the `_su_finish` rebuild."""
-    if os.environ.get("TNQS_QR_ALG", "default") == "defer":
+    if _qr_alg() == "defer":
         return mat, _ridged_cholesky(mat).mH, True
     q, r = _qr_split(mat)
     return q, r, False
@@ -197,29 +208,35 @@ def _svd(mat: torch.Tensor):
     return torch.linalg.svd(mat, full_matrices=False, driver=driver)
 
 
-def _gram_split(mat: torch.Tensor):
-    """(U, s, V†) via one eigh of the smaller Gram matrix.  Columns of U
-    (rows of V†) for zero singular values are zeroed, not
-    orthonormalized — the truncation path multiplies them by √s = 0."""
-    n1, n2 = mat.shape[-2], mat.shape[-1]
+def _gram(mat: torch.Tensor) -> torch.Tensor:
+    """The smaller Gram matrix of ``mat``: M†M, or MM† when M is wide."""
     h = mat.mH
-    if n2 <= n1:
-        w, v = _eigh(h @ mat)
-        w, v = w.flip(-1), v.flip(-1)  # descending
-        s = torch.sqrt(torch.clamp(w, min=0.0))
+    return h @ mat if mat.shape[-1] <= mat.shape[-2] else mat @ h
+
+
+def _gram_factors(mat: torch.Tensor, w: torch.Tensor, v: torch.Tensor):
+    """(U, s, V†) of ``mat`` from the ascending eigenpairs (w, v) of
+    :func:`_gram` (mat).  Columns of U (rows of V†) for zero singular
+    values are zeroed, not orthonormalized — the truncation path multiplies
+    them by √s = 0."""
+    w, v = w.flip(-1), v.flip(-1)  # descending
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    if mat.shape[-1] <= mat.shape[-2]:  # v holds V
         us = mat @ v  # = U diag(s)
         pos = (s > 0)[..., None, :]
         safe = torch.where(s > 0, s, torch.ones_like(s))[..., None, :]
         uu = torch.where(pos, us / safe, torch.zeros_like(us))
         return uu, s, v.mH
-    w, u = _eigh(mat @ h)
-    w, u = w.flip(-1), u.flip(-1)
-    s = torch.sqrt(torch.clamp(w, min=0.0))
-    sv = u.mH @ mat  # = diag(s) V†
+    sv = v.mH @ mat  # v holds U; = diag(s) V†
     pos = (s > 0)[..., :, None]
     safe = torch.where(s > 0, s, torch.ones_like(s))[..., :, None]
     vh = torch.where(pos, sv / safe, torch.zeros_like(sv))
-    return u, s, vh
+    return v, s, vh
+
+
+def _gram_split(mat: torch.Tensor):
+    """(U, s, V†) via one eigh of the smaller Gram matrix."""
+    return _gram_factors(mat, *_eigh(_gram(mat)))
 
 
 class BatchedState(NamedTuple):
@@ -522,25 +539,6 @@ def _index(idx, device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
-def _gate_bucket_update(state, gate, u_idx, v_idx, slot_u, slot_v, chi,
-                        cutoff, normalize_tensors):
-    """Simple update batched over all edges of one (slot_u, slot_v) bucket
-    (`simple_update.jl:17-68`): gather endpoints, run the update core,
-    write back; the kept spectrum becomes the new edge message
-    (`apply_gates.jl:108-115`)."""
-    tu_new, tv_new, msg, err = _simple_update_core(
-        state.tensors[u_idx], state.tensors[v_idx],
-        state.messages[u_idx], state.messages[v_idx],
-        gate, slot_u, slot_v, chi, cutoff, normalize_tensors,
-    )
-    with span("su.finish"):
-        tensors = state.tensors.clone()
-        messages = state.messages.clone()
-        _write_back(tensors, messages, u_idx, v_idx, slot_u, slot_v,
-                    tu_new, tv_new, msg)
-    return BatchedState(tensors, messages), err
-
-
 def _write_back(tensors, messages, u_idx, v_idx, slot_u, slot_v,
                 tu_new, tv_new, msg):
     """In-place row writes into the layer's own copies (indices are unique
@@ -560,7 +558,7 @@ def _theta(ru, rv, gate):
     else:
         theta = torch.einsum("bxcyz,bpqcz->bxpyq", theta, g)
     B, r1, d, r2, _ = theta.shape
-    return theta.reshape(B, r1 * d, r2 * d), r1, r2
+    return theta.reshape(B, r1 * d, r2 * d)
 
 
 def _normalize_rows(t: torch.Tensor) -> torch.Tensor:
@@ -577,50 +575,6 @@ def _edge_message(s_kept, normalize_tensors, dtype):
     return torch.diag_embed(s_kept).to(dtype)
 
 
-def _simple_update_core(tu, tv, mu, mv, gate, slot_u, slot_v, chi, cutoff,
-                        normalize_tensors):
-    """The batched simple-update kernel on gathered endpoint data: absorb
-    √env → QR-reduce → gate → truncated split into the static χ buffer →
-    restore with 1/√env.  Returns ``(tu_new, tv_new, message, err)``."""
-    D = tu.ndim - 2
-    d = tu.shape[-1]
-    with span("su.roots"):
-        env = torch.stack(
-            [mu[:, k] for k in range(D) if k != slot_u]
-            + [mv[:, k] for k in range(D) if k != slot_v], dim=0,
-        )  # [2(D-1), B, χ, χ]
-        roots, inv_roots = _pseudo_roots(env)
-
-    with span("su.qr"):
-        tp_u = _su_prep(tu, slot_u, roots[: D - 1], chi, d)
-        tp_v = _su_prep(tv, slot_v, roots[D - 1:], chi, d)
-        B = tp_u.shape[0]
-        q_all, r_all, deferred = _qr_reduce(torch.cat([tp_u, tp_v], dim=0))
-    with span("su.theta"):
-        ru = r_all[:B].reshape(B, -1, chi, d)
-        rv = r_all[B:].reshape(B, -1, chi, d)
-        mat, r1, r2 = _theta(ru, rv, gate)
-    with span("su.split"):
-        x, y, s_kept, err = _su_split(mat, chi, d, cutoff)
-
-    with span("su.finish"):
-        fac_u = x.reshape(B, r1, d, chi)
-        fac_v = y.transpose(1, 2).reshape(B, r2, d, chi)
-        if deferred:  # q is the raw tall matrix; undo R on the factor
-            fac_u = _rinv_left(r_all[:B], fac_u.reshape(B, r1, d * chi)
-                               ).reshape(B, r1, d, chi)
-            fac_v = _rinv_left(r_all[B:], fac_v.reshape(B, r2, d * chi)
-                               ).reshape(B, r2, d, chi)
-        tu_new = _su_finish(q_all[:B], fac_u, inv_roots[: D - 1], slot_u, tu,
-                            chi, d)
-        tv_new = _su_finish(q_all[B:], fac_v, inv_roots[D - 1:], slot_v, tv,
-                            chi, d)
-        msg = _edge_message(s_kept, normalize_tensors, mat.dtype)
-        if normalize_tensors:
-            tu_new, tv_new = _normalize_rows(tu_new), _normalize_rows(tv_new)
-    return tu_new, tv_new, msg, err
-
-
 def apply_one_site(state: BatchedState, gate: torch.Tensor,
                    idx=None) -> BatchedState:
     """Batched 1-site gates: gate [d', d] broadcast over vertices, or
@@ -634,32 +588,6 @@ def apply_one_site(state: BatchedState, gate: torch.Tensor,
     return state._replace(tensors=state.tensors.index_copy(0, idx, sub))
 
 
-def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
-                      chi: int, cutoff: float, normalize_tensors: bool = True):
-    """Apply one 2-site gate to every edge of a colour group
-    (`2dIsing_dynamics.jl:25-28`, batched).  All slot-pair buckets of the
-    group share ONE stacked eigh, ONE stacked QR and ONE stacked split;
-    ``TNQS_FUSE_BUCKETS=0`` (or a single bucket) runs per-bucket updates.
-    Bucket indices may be static tuples or device tensors."""
-    with span("su.group"):
-        buckets = list(buckets)
-        if not buckets:
-            return state, torch.zeros((0,), device=state.tensors.device)
-        if (os.environ.get("TNQS_FUSE_BUCKETS", "1") == "0"
-                or len(buckets) == 1):
-            errs = []
-            dev = state.tensors.device
-            for b in buckets:
-                state, err = _gate_bucket_update(
-                    state, gate, _index(b.u_idx, dev), _index(b.v_idx, dev),
-                    b.slot_u, b.slot_v, chi, cutoff, normalize_tensors,
-                )
-                errs.append(err)
-            return state, torch.cat(errs)
-        return _fused_color_group(state, buckets, gate, chi, cutoff,
-                                  normalize_tensors)
-
-
 def _su_prep(t, slot, roots_slice, chi, d):
     """Absorb √env on the non-gate legs and matricize to [B, M, χ·d]."""
     D = t.ndim - 2
@@ -669,35 +597,6 @@ def _su_prep(t, slot, roots_slice, chi, d):
     tp = t.permute(perm)
     M = int(np.prod(tp.shape[1:D]))
     return tp.reshape(tp.shape[0], M, chi * d)
-
-
-def _su_split(mat, chi, d, cutoff):
-    """Truncated split of the gated two-site matrix [B, r1·d, r2·d]:
-    relative discarded Σσ² ≤ cutoff, cap χ, inside the static buffer.
-    Returns (x [B, r1·d, χ], y [B, χ, r2·d], s_kept [B, χ], err [B])."""
-    if _svd_alg() == "gram":
-        uu, s, vh = _gram_split(mat)
-    else:
-        uu, s, vh = _svd(mat)
-    p = s * s
-    total = p.sum(-1, keepdim=True)
-    safe_total = torch.where(total == 0, torch.ones_like(total), total)
-    tail = torch.flip(torch.cumsum(torch.flip(p, [-1]), -1), [-1])
-    keep = (tail / safe_total > cutoff).clone()
-    keep[..., 0] = True
-    keep &= torch.arange(s.shape[-1], device=s.device)[None, :] < chi
-    err = torch.where(keep, torch.zeros_like(p), p).sum(-1) / safe_total[:, 0]
-    k = min(chi, s.shape[-1])
-    s_kept = torch.where(keep, s, torch.zeros_like(s))[..., :k]
-    uu = uu[..., :k]
-    vh = vh[..., :k, :]
-    if k < chi:  # bond smaller than the buffer: zero-pad
-        B, padn = s.shape[0], chi - k
-        s_kept = torch.cat([s_kept, s_kept.new_zeros(B, padn)], dim=-1)
-        uu = torch.cat([uu, uu.new_zeros(B, uu.shape[1], padn)], dim=-1)
-        vh = torch.cat([vh, vh.new_zeros(B, padn, vh.shape[2])], dim=-2)
-    sqrt_s = torch.sqrt(s_kept).to(mat.dtype)
-    return uu * sqrt_s[:, None, :], sqrt_s[:, :, None] * vh, s_kept, err
 
 
 def _su_finish(q, fac, inv_roots, slot, t_ref, chi, d):
@@ -721,50 +620,145 @@ def _su_finish(q, fac, inv_roots, slot, t_ref, chi, d):
     return t
 
 
-def _fused_group_core(state, items, gate, chi, cutoff, normalize_tensors):
-    """Shared fused-colour-group math on pre-gathered endpoint data.
+def _fuse_buckets() -> bool:
+    return os.environ.get("TNQS_FUSE_BUCKETS", "1") != "0"
 
-    ``items``: list of ``(slot_u, slot_v, tu, tv, mu, mv)`` per bucket.
-    Runs ONE stacked roots stage, ONE stacked QR and ONE stacked split
-    across all buckets; returns ``[(tu_new, tv_new, msg, err)]`` in bucket
-    order."""
-    D = state.degree
-    d = state.tensors.shape[-1]
-    with span("su.roots"):
-        envs = [
-            torch.stack([mu[:, k] for k in range(D) if k != su]
-                        + [mv[:, k] for k in range(D) if k != sv], dim=0)
-            for (su, sv, _tu, _tv, mu, mv) in items
-        ]  # each [2(D-1), B_b, χ, χ]
-        sizes = [e.shape[1] for e in envs]
-        offs = np.cumsum([0] + sizes)
-        roots_all, inv_roots_all = _pseudo_roots(torch.cat(envs, dim=1))
 
+def _cat(xs, dim: int) -> torch.Tensor:
+    """``torch.cat``, less the copy of a lone tensor."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
+
+
+def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
+                      chi: int, cutoff: float, normalize_tensors: bool = True):
+    """Apply one 2-site gate to every edge of a colour group
+    (`2dIsing_dynamics.jl:25-28`, batched).  All slot-pair buckets of the
+    group share ONE stacked roots call, ONE stacked QR and ONE stacked
+    split; ``TNQS_FUSE_BUCKETS=0`` runs per-bucket updates.  Bucket indices
+    may be static tuples or device tensors.  On CUDA the update replays as
+    CUDA graphs where its route allows (``su_graphs``)."""
+    with span("su.group"):
+        dev = state.tensors.device
+        group = [(b.slot_u, b.slot_v, _index(b.u_idx, dev),
+                  _index(b.v_idx, dev)) for b in buckets]
+        if not group:
+            return state, torch.zeros((0,), device=dev)
+        errs = []
+        for part in [group] if _fuse_buckets() else [[b] for b in group]:
+            state, err = _group_update(state, part, gate, chi, cutoff,
+                                       normalize_tensors)
+            errs.append(err)
+        return state, _cat(errs, 0)
+
+
+def _group_update(state, group, gate, chi, cutoff, normalize_tensors):
+    """The simple update of the buckets ``group`` ([(slot_u, slot_v, u_idx,
+    v_idx)]) (`simple_update.jl:17-68`), written into one copy of the state;
+    the kept spectrum becomes each edge's message (`apply_gates.jl:108-115`).
+    Returns (state, errors)."""
+    results = su_graphs.updates(state, group, gate, chi, cutoff,
+                                normalize_tensors)
+    with span("su.finish"):
+        tensors = state.tensors.clone()
+        messages = state.messages.clone()
+        for (su, sv, u_idx, v_idx), (tu_new, tv_new, msg, _err) in zip(
+                group, results):
+            _write_back(tensors, messages, u_idx, v_idx, su, sv, tu_new,
+                        tv_new, msg)
+        # a copy: a graph's outputs are overwritten by its next replay
+        err = torch.cat([r[3] for r in results])
+    return BatchedState(tensors, messages), err
+
+
+def _gather(state, group):
+    """The buckets' endpoint rows: ``items`` [(slot_u, slot_v, tu, tv, mu,
+    mv)], as the update's stretches take them."""
+    return [(su, sv, state.tensors[u_idx], state.tensors[v_idx],
+             state.messages[u_idx], state.messages[v_idx])
+            for su, sv, u_idx, v_idx in group]
+
+
+# The update on gathered rows runs in three stretches with no host read,
+# between which the Jacobi kernels run: K1 in `_pseudo_roots` after the
+# first, K2 in `_eigh` (the Gram split) after the second.  `_group_core`
+# runs them in that order through a runner: eagerly by default, replayed as
+# CUDA graphs by `su_graphs`.
+
+
+def _su_env(items):
+    """Stretch 0: every bucket's environments but the gate's bond, stacked
+    [2(D-1), ΣB, χ, χ] for one roots call."""
+    envs = []
+    for su, sv, _tu, _tv, mu, mv in items:
+        D = mu.shape[1]
+        envs.append(torch.stack([mu[:, k] for k in range(D) if k != su]
+                                + [mv[:, k] for k in range(D) if k != sv],
+                                dim=0))
+    return _cat(envs, 1)
+
+
+def _su_reduce(items, roots_all, gate, chi):
+    """Stretch 1: absorb √env on each endpoint's other legs, QR-reduce every
+    endpoint in one stacked batch, gate each edge's two R factors.
+    Returns (q_all, r_all, mat [ΣB, r·d, r·d])."""
+    D, d = items[0][2].ndim - 2, items[0][2].shape[-1]
     with span("su.qr"):
-        tps = []
-        for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
-            roots = roots_all[:, offs[i]: offs[i + 1]]
+        tps, off = [], 0
+        for su, sv, tu, tv, _mu, _mv in items:
+            roots = roots_all[:, off: off + tu.shape[0]]
             tps += [_su_prep(tu, su, roots[: D - 1], chi, d),
                     _su_prep(tv, sv, roots[D - 1:], chi, d)]
-        q_all, r_all, deferred = _qr_reduce(torch.cat(tps, dim=0))
-
+            off += tu.shape[0]
+        q_all, r_all, _ = _qr_reduce(torch.cat(tps, dim=0))
     with span("su.theta"):
-        mats, shapes = [], []
-        for i, B in enumerate(sizes):
-            off = 2 * offs[i]
-            ru = r_all[off: off + B].reshape(B, -1, chi, d)
-            rv = r_all[off + B: off + 2 * B].reshape(B, -1, chi, d)
-            mat, r1, r2 = _theta(ru, rv, gate)
-            mats.append(mat)
-            shapes.append((r1, r2))
-    with span("su.split"):
-        x_all, y_all, s_all, err_all = _su_split(torch.cat(mats, dim=0), chi,
-                                                 d, cutoff)
+        mats, off = [], 0
+        for _su, _sv, tu, _tv, _mu, _mv in items:
+            B = tu.shape[0]
+            ru = r_all[2 * off: 2 * off + B].reshape(B, -1, chi, d)
+            rv = r_all[2 * off + B: 2 * off + 2 * B].reshape(B, -1, chi, d)
+            mats.append(_theta(ru, rv, gate))
+            off += B
+    return q_all, r_all, _cat(mats, 0)
 
+
+def _su_truncate(uu, s, vh, chi, cutoff):
+    """Truncate the split (U, s, V†) of the gated two-site matrices
+    [B, r1·d, r2·d]: relative discarded Σσ² ≤ cutoff, cap χ, inside the
+    static buffer.  Returns (x [B, r1·d, χ], y [B, χ, r2·d], s_kept [B, χ],
+    err [B])."""
+    p = s * s
+    total = p.sum(-1, keepdim=True)
+    safe_total = torch.where(total == 0, torch.ones_like(total), total)
+    tail = torch.flip(torch.cumsum(torch.flip(p, [-1]), -1), [-1])
+    keep = (tail / safe_total > cutoff).clone()
+    keep[..., 0] = True
+    keep &= torch.arange(s.shape[-1], device=s.device)[None, :] < chi
+    err = torch.where(keep, torch.zeros_like(p), p).sum(-1) / safe_total[:, 0]
+    k = min(chi, s.shape[-1])
+    s_kept = torch.where(keep, s, torch.zeros_like(s))[..., :k]
+    uu = uu[..., :k]
+    vh = vh[..., :k, :]
+    if k < chi:  # bond smaller than the buffer: zero-pad
+        B, padn = s.shape[0], chi - k
+        s_kept = torch.cat([s_kept, s_kept.new_zeros(B, padn)], dim=-1)
+        uu = torch.cat([uu, uu.new_zeros(B, uu.shape[1], padn)], dim=-1)
+        vh = torch.cat([vh, vh.new_zeros(B, padn, vh.shape[2])], dim=-2)
+    sqrt_s = torch.sqrt(s_kept).to(uu.dtype)
+    return uu * sqrt_s[:, None, :], sqrt_s[:, :, None] * vh, s_kept, err
+
+
+def _su_rebuild(items, split, q_all, r_all, inv_roots_all, chi,
+                normalize_tensors, deferred):
+    """Stretch 2, after the truncated split (:func:`_su_truncate`): rebuild
+    both endpoints of every edge (Q·factor, 1/√env), the kept spectrum as
+    the edge message.  Returns [(tu_new, tv_new, msg, err)] per bucket."""
+    x_all, y_all, s_all, err_all = split
+    D, d = items[0][2].ndim - 2, items[0][2].shape[-1]
+    r1, r2 = x_all.shape[1] // d, y_all.shape[2] // d
+    results, off = [], 0
     with span("su.finish"):
-        results = []
-        for i, (su, sv, tu, tv, _mu, _mv) in enumerate(items):
-            B, off, (r1, r2) = sizes[i], offs[i], shapes[i]
+        for su, sv, tu, tv, mu, _mv in items:
+            B = tu.shape[0]
             sl = slice(off, off + B)
             inv_roots = inv_roots_all[:, sl]
             q_u = q_all[2 * off: 2 * off + B]
@@ -782,55 +776,71 @@ def _fused_group_core(state, items, gate, chi, cutoff, normalize_tensors):
                                 d)
             tv_new = _su_finish(q_v, fac_v, inv_roots[D - 1:], sv, tv, chi,
                                 d)
-            msg = _edge_message(s_all[sl], normalize_tensors,
-                                state.messages.dtype)
+            msg = _edge_message(s_all[sl], normalize_tensors, mu.dtype)
             if normalize_tensors:
                 tu_new = _normalize_rows(tu_new)
                 tv_new = _normalize_rows(tv_new)
             results.append((tu_new, tv_new, msg, err_all[sl]))
+            off += B
     return results
 
 
-def _fused_color_group(state, buckets, gate, chi, cutoff, normalize_tensors):
-    """One stacked roots/QR/split across every bucket of the colour group.
-    The group writes into one copy of the state, in place."""
-    dev = state.tensors.device
-    items, idxs = [], []
-    for b in buckets:
-        u_idx, v_idx = _index(b.u_idx, dev), _index(b.v_idx, dev)
-        items.append((
-            b.slot_u, b.slot_v,
-            state.tensors[u_idx], state.tensors[v_idx],
-            state.messages[u_idx], state.messages[v_idx],
-        ))
-        idxs.append((u_idx, v_idx))
-    results = _fused_group_core(state, items, gate, chi, cutoff,
-                                normalize_tensors)
-    with span("su.finish"):
-        tensors = state.tensors.clone()
-        messages = state.messages.clone()
-        errs = []
-        for b, (u_idx, v_idx), (tu_new, tv_new, msg, err) in zip(
-            buckets, idxs, results
-        ):
-            _write_back(tensors, messages, u_idx, v_idx, b.slot_u, b.slot_v,
-                        tu_new, tv_new, msg)
-            errs.append(err)
-        return BatchedState(tensors, messages), torch.cat(errs)
+class _Eager:
+    """:func:`_group_core`'s default runner: each stretch runs as it comes,
+    each kernel's output is read where it lies."""
+
+    @staticmethod
+    def stretch(_i, fn):
+        return fn()
+
+    @staticmethod
+    def fixed(_name, value):
+        return value
 
 
-def _bucket_updates(state, items, gate, chi, cutoff, normalize_tensors):
+def _group_core(items, gate, chi, cutoff, normalize_tensors, run=_Eager):
+    """The update of the buckets' gathered rows ``items``: ONE stacked roots
+    call, ONE stacked QR and ONE stacked split across them.  ``run.stretch(i,
+    fn)`` runs stretch ``i`` (``fn`` returns a tuple of tensors) and
+    ``run.fixed(name, x)`` places a kernel's output ``x`` where the next
+    stretch reads it (:class:`_Eager`, or ``su_graphs``' replays).  Returns
+    [(tu_new, tv_new, msg, err)] in bucket order."""
+    (env,) = run.stretch(0, lambda: (_su_env(items),))
+    with span("su.roots"):
+        roots, inv_roots = _pseudo_roots(env)
+    roots = run.fixed("roots", roots)
+    inv_roots = run.fixed("inv_roots", inv_roots)
+    gram = _svd_alg() == "gram"
+
+    def reduce():
+        q_all, r_all, mat = _su_reduce(items, roots, gate, chi)
+        return (q_all, r_all, mat) + ((_gram(mat),) if gram else ())
+
+    q_all, r_all, mat, *h = run.stretch(1, reduce)
+    with span("su.split"):
+        factors = _eigh(h[0]) if gram else _svd(mat)
+    factors = [run.fixed(f"split{i}", f) for i, f in enumerate(factors)]
+
+    def rebuild():
+        split = _su_truncate(*(_gram_factors(mat, *factors) if gram
+                               else factors), chi, cutoff)
+        return tuple(t for res in _su_rebuild(
+            items, split, q_all, r_all, inv_roots, chi, normalize_tensors,
+            _qr_alg() == "defer") for t in res)
+
+    flat = run.stretch(2, rebuild)
+    return [flat[i: i + 4] for i in range(0, len(flat), 4)]
+
+
+def _bucket_updates(items, gate, chi, cutoff, normalize_tensors):
     """The simple update of a colour group's buckets on gathered endpoint
-    data (``items`` as for :func:`_fused_group_core`): one stacked update
-    across the buckets, or one per bucket with ``TNQS_FUSE_BUCKETS=0`` (as
-    :func:`apply_color_group`).  Returns ``[(tu_new, tv_new, msg, err)]``
-    in bucket order."""
-    if os.environ.get("TNQS_FUSE_BUCKETS", "1") != "0" and len(items) > 1:
-        return _fused_group_core(state, items, gate, chi, cutoff,
-                                 normalize_tensors)
-    return [_simple_update_core(tu, tv, mu, mv, gate, su, sv, chi, cutoff,
-                                normalize_tensors)
-            for (su, sv, tu, tv, mu, mv) in items]
+    data ``items``: one stacked update across the buckets, or one per
+    bucket with ``TNQS_FUSE_BUCKETS=0`` (as :func:`apply_color_group`).
+    Eager: the callers gather from sharded or padded tables.  Returns
+    [(tu_new, tv_new, msg, err)] in bucket order."""
+    parts = [items] if _fuse_buckets() else [[it] for it in items]
+    return [r for part in parts
+            for r in _group_core(part, gate, chi, cutoff, normalize_tensors)]
 
 
 def _select_rows(old, new, inv, wr):
@@ -868,8 +878,7 @@ def apply_color_group_masked(
             state.tensors[u_idx], state.tensors[v_idx],
             state.messages[u_idx], state.messages[v_idx],
         ))
-    results = _bucket_updates(state, items, gate, chi, cutoff,
-                              normalize_tensors)
+    results = _bucket_updates(items, gate, chi, cutoff, normalize_tensors)
     tensors, messages = state.tensors, state.messages.clone()
     errs = []
     for (slot_u, slot_v), tb, (tu_new, tv_new, msg, err) in zip(

@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from .engine import (
-    BatchedState,
     _bucket_updates,
     _select_rows,
     _site_transfer,
@@ -276,8 +275,7 @@ def _apply_group(mesh, buckets, tensors, messages, gates, chi, cutoff,
             items.append((b.slot_u, b.slot_v, tensors[s][u], tv,
                           messages[s][u], mv))
             which.append(i)
-        outs = (_bucket_updates(BatchedState(tensors[s], messages[s]),
-                                items, gates[s], chi, cutoff,
+        outs = (_bucket_updates(items, gates[s], chi, cutoff,
                                 normalize_tensors)
                 if items else [])
         res = [None] * len(buckets)
