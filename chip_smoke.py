@@ -34,7 +34,10 @@ Phases, each printing its checks and seconds:
 4. main path, ``chi64``: IBM-Eagle 127-qubit kicked Ising at χ=64, two
    layers, plus ``TNQS_BP_KERNEL=1``; K2 and K3 must launch, K2 also on the
    Gram split's n=256 batches, ⟨Z⟩ must agree with the kernels-off run to
-   1e-4, and the recorded inputs are checked as in phase 3;
+   1e-4, and the recorded inputs are checked as in phase 3; then the
+   benchmark's Eagle field layer at θ_h = 0.961737, 8 steps (where
+   CholeskyQR2 once returned NaN): ⟨Z⟩ finite, no graph capture refused,
+   the shifted CholeskyQR factors logged;
 5. physics: 3x3 TFIM at χ=8, cutoff 0, complex64, BP ⟨Z⟩ against the
    dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4; then the
    ``[su_graphs]`` line: the field layer at the benchmark quench's shape,
@@ -243,7 +246,8 @@ sharded_heavyhex) runs with
 every launch
 counter set to 0 just before it and read just after, and logs what the
 update's CUDA graphs did over it (keys captured and refused, updates
-replayed and eager) and the device's memory peak.  The line before the last is ``{"kernels": [...]}`` (with launches per path
+replayed and eager; a refused capture fails the path) and the device's
+memory peak.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -891,13 +895,54 @@ def counted(counters, name, required, run):
     out = run()
     launches = {k: c.count for k, c in counters.items()}
     torch.cuda.synchronize()
-    log(name, f"update graphs {graph_calls()}; device memory peak "
+    calls = graph_calls()
+    log(name, f"update graphs {calls}; device memory peak "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
               f"allocated, {torch.cuda.max_memory_reserved() / 2**20:.1f} "
               f"MiB reserved")
+    assert calls["refused"] == 0, f"{name}: update graphs refused: {calls}"
     for k in required:
         assert launches[k] > 0, f"{name}: kernel {k} was never launched"
     return launches, out
+
+
+def eagle_sweep_check(tt, dev, theta_h=0.961737, steps=8, chi=64):
+    """The benchmark's Eagle χ=64 field layer (Rx(θ_h), Rzz(−π/2)) on the
+    fast stack with K3, from |0…0⟩ at the θ_h where CholeskyQR2 used to
+    return NaN (steps 6-7): ⟨Z⟩ finite after every step, no capture of the
+    update's graphs refused, and the CholeskyQR factors that took a shift
+    (``qr.chol_shifted`` of ``qr.chol_factors``) logged."""
+    from tensornetworkquantumsimulator_torch import parallel as par
+    from tensornetworkquantumsimulator_torch.parallel import su_graphs
+    from tensornetworkquantumsimulator_torch.utils import profiling
+
+    with knobs(dict(FAST_STACK, TNQS_BP_KERNEL="1")):
+        su_graphs._cache.clear()
+        g = tt.ibm_eagle_lattice()
+        spec, state = par.batched_product_state(g, chi=chi,
+                                                dtype=torch.complex64,
+                                                device=dev)
+        _, layer = par.make_field_layer_fn(
+            g, chi, site_pauli=("X",), bond_pauli="ZZ", cutoff=1e-10,
+            bp_maxiter=25, bp_tolerance=1e-5, spec=spec, device=dev)
+        site = torch.full((1, spec.num_vertices), theta_h,
+                          dtype=torch.float32, device=dev)
+        bond = torch.full((len(spec.edges),), -np.pi / 2,
+                          dtype=torch.float32, device=dev)
+        z_op = tt.op_matrix("Z", 2)
+        with profiling.tracing() as handle:
+            for step in range(1, steps + 1):
+                state, _ = layer(state, site, bond)
+                z = par.local_expectations(spec, state, z_op).real
+                assert torch.isfinite(z).all(), \
+                    f"eagle sweep: non-finite <Z> at step {step}"
+            c = handle.collect()["counters"]
+        calls = graph_calls()
+    assert calls["refused"] == 0, f"eagle sweep: graphs refused: {calls}"
+    log("chi64", f"Eagle field layer at theta_h {theta_h}, {steps} steps "
+                 f"from |0...0>: <Z> finite; CholeskyQR factors shifted "
+                 f"{c['qr.chol_shifted']} of {c['qr.chol_factors']}; update "
+                 f"graphs {calls}")
 
 
 def main_path(counters, name, run, env, required, targets):
@@ -3992,6 +4037,7 @@ def main() -> int:
             shaped["K2"].append(entry)
             log(name, f"K2 took the gram split's batches {gram_shapes}; the "
                       f"largest, recorded: {entry['log']}")
+            eagle_sweep_check(tt, dev)
         del seen
         done(name)
 

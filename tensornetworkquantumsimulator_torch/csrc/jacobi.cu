@@ -97,6 +97,14 @@
 // |c|), the reference's only skip.  ||A||_F is summed in a fixed order, so
 // the stopping sweep is deterministic.
 //
+// Non-finite input.  A matrix whose ||A||_F^2 is not finite (a NaN or Inf
+// entry) runs no sweep and comes back as NaN, eigenvalues and vectors (K2)
+// or both roots (K1); the batch's other matrices are computed as ever.
+// The TPU kernel computes NaN through such a matrix.  Here the sort of
+// K2's polish used to meet NaN eigenvalues, leave slots of its order
+// unwritten and gather from outside shared memory, which ended the CUDA
+// context; its order is now total (NaN last) whatever the values.
+//
 // Interface: plain extern "C" functions taking device pointers and a
 // stream; each returns cudaGetLastError() after its launch.
 
@@ -196,6 +204,14 @@ __device__ __forceinline__ float4 rotation(float d, float c, float2 b,
     rot = make_float4(cs, t * cs, x * ih, y * ih);
   }
   return rot;
+}
+
+// x (at index i) sorts before y (at index j): ascending, NaN last, ties by
+// index.  A total order, unlike `<` on values that may hold a NaN.
+__device__ __forceinline__ bool before(float x, int i, float y, int j) {
+  const bool nx = isnan(x), ny = isnan(y);
+  if (nx != ny) return ny;
+  return (!nx && x < y) || ((nx || x == y) && i < j);
 }
 
 // Inverse of sigma: the slot whose content moves into slot t.
@@ -403,10 +419,14 @@ __host__ __device__ inline int row_lanes(int h) {
 // rows [rank * n/C, ...) of V sit at L.v row-major, column s (slot order)
 // belonging to diagonal element s.  All threads of the CTA (all CTAs of the
 // cluster) take part.  Pairs whose block is all at most noise_floor eps
-// ||A||_F are not rotated.  Returns the sweeps run.
+// ||A||_F are not rotated.  Returns the sweeps run.  `finite` is false when
+// ||A||_F^2 is not finite (a NaN or Inf entry, or a norm beyond float's
+// range): then no sweep runs, A and V are left as they were, and the
+// caller writes NaN for the matrix.  Every CTA of a cluster sums the same
+// parts in the same order, so all take that branch together.
 template <int N, int C>
 __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
-                             float noise_floor, int& a_final) {
+                             float noise_floor, int& a_final, bool& finite) {
   using PL = Plan<N, C>;
   const int n = N ? N : n_rt, h = n / 2, P = pitch(h);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -443,6 +463,8 @@ __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
     fro2 = 0.f;
     for (int t = 0; t < C; ++t) fro2 += parts[t];
   }
+  finite = isfinite(fro2);
+  const int cap = finite ? max_sweeps : 0;
   const float done_below = 4.f * FLT_EPSILON * sqrtf(fro2);
   const float noise = noise_floor * FLT_EPSILON * sqrtf(fro2);
 
@@ -554,7 +576,7 @@ __device__ int jacobi_sweeps(const Layout& L, int n_rt, int max_sweeps,
   int cur_at = L.a0, nxt_at = L.a1;
   int pb = 0;  // which half of par / mval this round reads
   int sweep = 0;
-  while (sweep < max_sweeps) {
+  while (sweep < cap) {
     bool big = false;  // warp 0: some pivot of this sweep was above the bound
     for (int r = 0; r < n - 1; ++r) {
       const float2* cur = shared_at<float2>(cur_at);
@@ -813,11 +835,19 @@ __global__ void __launch_bounds__(Plan<N, C>::kMaxThreads)
   load_planes(shared_at<float2>(L.a0), a_mat, n, prow, row0);
   __syncthreads();
   int a_final;
+  bool finite;
   const int sweeps =
-      jacobi_sweeps<N, C>(L, n, max_sweeps, noise_floor, a_final);
+      jacobi_sweeps<N, C>(L, n, max_sweeps, noise_floor, a_final, finite);
   if (sweeps_out != nullptr && tid == 0 && rank == 0) sweeps_out[mat] = sweeps;
   float* w_mat = w + size_t(mat) * n;
   float2* v_mat = v + size_t(mat) * n * n;
+  if (!finite) {  // NaN out for this matrix; the others are not touched
+    const float nan = __int_as_float(0x7fffffff);
+    for (int i = tid; i < rows; i += nt) w_mat[row0 + i] = nan;
+    for (int e = tid; e < rows * n; e += nt)
+      v_mat[row0 * n + e] = make_float2(nan, nan);
+    return;
+  }
   float2* V = shared_at<float2>(L.v);
   if (C > 1 || !polish) {
     const int P = pitch(h);
@@ -834,12 +864,14 @@ __global__ void __launch_bounds__(Plan<N, C>::kMaxThreads)
     newton_schulz<N>(Q, G, V, n);
     float* wv = shared_at<float>(L.fl);
     rayleigh<N>(wv, G, V, Q, a_mat, n);
-    // ascending order by counting (ties by index): order[rank of j] = j
+    // ascending order by counting: order[rank of j] = j.  The order is
+    // total (NaN last, ties by index), so `order` is a permutation whatever
+    // the values: a value that compares false both ways would leave slots
+    // of `order` unwritten and the gather below would read outside Q.
     int* order = shared_at<int>(L.order);
     for (int j = tid; j < n; j += nt) {
       int below = 0;
-      for (int i = 0; i < n; ++i)
-        below += wv[i] < wv[j] || (wv[i] == wv[j] && i < j);
+      for (int i = 0; i < n; ++i) below += before(wv[i], i, wv[j], j);
       order[below] = j;
       w_mat[below] = wv[j];
     }
@@ -865,9 +897,16 @@ __global__ void __launch_bounds__(Plan<N, 1>::kMaxThreads)
   load_planes(shared_at<float2>(L.a0), a + off, n, h, 0);
   __syncthreads();
   int a_final;
+  bool finite;
   const int sweeps =
-      jacobi_sweeps<N, 1>(L, n, max_sweeps, noise_floor, a_final);
+      jacobi_sweeps<N, 1>(L, n, max_sweeps, noise_floor, a_final, finite);
   if (sweeps_out != nullptr && tid == 0) sweeps_out[blockIdx.x] = sweeps;
+  if (!finite) {  // NaN out for this matrix; the others are not touched
+    const float nan = __int_as_float(0x7fffffff);
+    for (int e = tid; e < nn; e += nt)
+      root[off + e] = inv_root[off + e] = make_float2(nan, nan);
+    return;
+  }
 
   // both copies of A as scratch; two Newton-Schulz passes, W back in V's place
   float2 *B0 = shared_at<float2>(L.a0), *B1 = shared_at<float2>(L.a1);

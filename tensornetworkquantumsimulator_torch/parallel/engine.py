@@ -31,6 +31,7 @@ replays as CUDA graphs (``su_graphs``).
 from __future__ import annotations
 
 import functools
+import math
 import os
 import string
 from typing import NamedTuple
@@ -63,6 +64,10 @@ _MEMBER_SWEEPS_COMPUTED = Counter("bp.member_sweeps_computed")
 _MEMBER_SWEEPS_ACTIVE = Counter("bp.member_sweeps_active")
 _CONVERGE_READS = Counter("host.reads.bp.converge")
 _REFACTOR_READS = Counter("host.reads.qr.refactor")
+# the Cholesky factors of the update's CholeskyQR passes, and of those the
+# ones that took a shifted factorization (a device sum; `_gram_cholesky`)
+_CHOL_FACTORS = Counter("qr.chol_factors")
+_CHOL_SHIFTED = Counter("qr.chol_shifted")
 
 
 def _svd_alg() -> str:
@@ -98,18 +103,56 @@ def _eigh(m: torch.Tensor):
         return eigh_plain(m)
 
 
-def _ridged_cholesky(mat: torch.Tensor) -> torch.Tensor:
-    """Lower L with L L† = A†A + ridge: a relative ridge keeps the factor
-    finite when A has zero-padded bond columns (rank-deficient Gram)."""
-    gram = mat.mH @ mat
+def _ridged_cholesky(mat: torch.Tensor, shifted: list | None = None):
+    """Lower L with L L† = A†A + ridge for a batch A [..., m, k]
+    (:func:`_gram_cholesky` of A†A)."""
+    return _gram_cholesky(mat.mH @ mat, mat.shape[-2], shifted)
+
+
+def _gram_cholesky(gram: torch.Tensor, m: int, shifted: list | None = None):
+    """Lower L with L L† = A†A + ridge from the Gram ``gram`` = A†A of an
+    m-row block [m, k]: a relative ridge, 10·ε·(tr + k·ε) as in the JAX
+    package's ``_chol_once``, keeps the factor finite when A has
+    zero-padded bond columns (rank-deficient Gram).
+
+    The Gram's rounding grows with m, and the ridge covers it only for a
+    few hundred rows: on an H100, [4096, 128] blocks of Eagle at χ=64 read
+    null-space eigenvalues down to −1.30e-6·tr against the ridge's
+    1.19e-6·tr, and the factorization failed.  A matrix whose ridged
+    factorization fails (``cholesky_ex``'s ``info`` ≠ 0) takes the first
+    shifted one of A†A + s·I that succeeds, with u = ε/2: s = 10·√m·u·(tr +
+    k·ε), the Gram's rounding as it grows with m; then shifted
+    CholeskyQR's 11(mk + k(k+1))·u·‖A‖², tr ≥ ‖A‖² (Fukaya,
+    Kannan, Nakatsukasa, Yamamoto and Yanagisawa, SIAM J. Sci. Comput. 42
+    (2020)), which succeeds for any finite block whose Gram is finite.  A
+    matrix none succeeds on (a non-finite A) gets a NaN factor, never a
+    wrong finite one.  Each factorization runs on the whole batch, and
+    ``torch.where`` selects per matrix: no host read, so the update's CUDA
+    graphs hold it, and a matrix whose ridged factorization succeeds gets
+    the factor it got before.  The JAX package has no fallback (its
+    Cholesky returns NaN where this one fails).  ``shifted``, a list,
+    receives the [B] bool of the matrices that took a shift."""
     k = gram.shape[-1]
     eps = torch.finfo(gram.real.dtype).eps
     tr = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1).real
-    ridge = (10.0 * k * eps * (tr / k + eps)).to(gram.dtype)
     eye = torch.eye(k, dtype=gram.dtype, device=gram.device)
-    gram = hermitize(gram + ridge[..., None, None] * eye)
-    # cholesky_ex: no host sync for the error check
-    ell, _ = torch.linalg.cholesky_ex(gram)
+    with span("su.qr.cholesky"):
+        # the ridge, then the two shifts (each a multiple of tr/k + ε):
+        # three factorizations in one call
+        t = tr / k + eps
+        shifts = torch.stack([10.0 * k * eps * t,
+                              10.0 * math.sqrt(m) * (eps / 2) * k * t,
+                              11.0 * (m * k + k * (k + 1)) * (eps / 2) * k * t])
+        # cholesky_ex: no host sync for the error check
+        ells, info = torch.linalg.cholesky_ex(
+            hermitize(gram) + shifts.to(gram.dtype)[..., None, None] * eye)
+        ok = info == 0
+        ell = torch.where(ok[0, ..., None, None], ells[0],
+                          torch.where(ok[1, ..., None, None], ells[1],
+                                      ells[2]))
+        ell = torch.where(ok.any(0)[..., None, None], ell, torch.nan)
+    if shifted is not None:
+        shifted.append(~ok[0])
     return ell
 
 
@@ -120,9 +163,9 @@ def _polar_once(mat: torch.Tensor):
     return mat @ inv_root, root
 
 
-def _chol_once(mat: torch.Tensor):
+def _chol_once(mat: torch.Tensor, shifted: list | None = None):
     """One CholeskyQR pass: A = Q·L† from the Gram's Cholesky factor."""
-    ell = _ridged_cholesky(mat)
+    ell = _ridged_cholesky(mat, shifted)
     # x·L† = A
     q = torch.linalg.solve_triangular(ell.mH, mat, upper=True, left=False)
     return q, ell.mH
@@ -162,13 +205,15 @@ def _qr_alg() -> str:
     return os.environ.get("TNQS_QR_ALG", "default")
 
 
-def _qr_split(mat: torch.Tensor):
+def _qr_split(mat: torch.Tensor, shifted: list | None = None):
+    """(Q, R) of a batch by the ``TNQS_QR_ALG`` route; ``shifted`` receives
+    each CholeskyQR pass's shifted matrices (:func:`_ridged_cholesky`)."""
     alg = _qr_alg()
     if alg == "cholqr1":
-        return _chol_once(mat)
+        return _chol_once(mat, shifted)
     if alg == "cholqr2":
-        q1, m1 = _chol_once(mat)
-        q, m2 = _chol_once(q1)
+        q1, m1 = _chol_once(mat, shifted)
+        q, m2 = _chol_once(q1, shifted)
         return q, m2 @ m1
     if alg != "polar":
         return _householder_qr(mat)
@@ -177,16 +222,16 @@ def _qr_split(mat: torch.Tensor):
     return q, m2 @ m1
 
 
-def _qr_reduce(mat: torch.Tensor):
+def _qr_reduce(mat: torch.Tensor, shifted: list | None = None):
     """QR-reduce with an optionally deferred Q (``TNQS_QR_ALG=defer``).
 
     Returns ``(q, r, deferred)``: ``deferred=False`` → ``q`` orthonormal;
     ``deferred=True`` → ``q`` IS the input and the caller left-solves the
     small factors against upper-triangular ``r`` (:func:`_rinv_left`)
-    before the `_su_finish` rebuild."""
+    before the `_su_finish` rebuild.  ``shifted`` as for :func:`_qr_split`."""
     if _qr_alg() == "defer":
-        return mat, _ridged_cholesky(mat).mH, True
-    q, r = _qr_split(mat)
+        return mat, _ridged_cholesky(mat, shifted).mH, True
+    q, r = _qr_split(mat, shifted)
     return q, r, False
 
 
@@ -697,10 +742,11 @@ def _su_env(items):
     return _cat(envs, 1)
 
 
-def _su_reduce(items, roots_all, gate, chi):
+def _su_reduce(items, roots_all, gate, chi, shifted=None):
     """Stretch 1: absorb √env on each endpoint's other legs, QR-reduce every
     endpoint in one stacked batch, gate each edge's two R factors.
-    Returns (q_all, r_all, mat [ΣB, r·d, r·d])."""
+    Returns (q_all, r_all, mat [ΣB, r·d, r·d]); ``shifted`` as for
+    :func:`_qr_split`."""
     D, d = items[0][2].ndim - 2, items[0][2].shape[-1]
     with span("su.qr"):
         tps, off = [], 0
@@ -709,7 +755,7 @@ def _su_reduce(items, roots_all, gate, chi):
             tps += [_su_prep(tu, su, roots[: D - 1], chi, d),
                     _su_prep(tv, sv, roots[D - 1:], chi, d)]
             off += tu.shape[0]
-        q_all, r_all, _ = _qr_reduce(torch.cat(tps, dim=0))
+        q_all, r_all, _ = _qr_reduce(torch.cat(tps, dim=0), shifted)
     with span("su.theta"):
         mats, off = [], 0
         for _su, _sv, tu, _tv, _mu, _mv in items:
@@ -813,10 +859,16 @@ def _group_core(items, gate, chi, cutoff, normalize_tensors, run=_Eager):
     gram = _svd_alg() == "gram"
 
     def reduce():
-        q_all, r_all, mat = _su_reduce(items, roots, gate, chi)
-        return (q_all, r_all, mat) + ((_gram(mat),) if gram else ())
+        shifted = []
+        q_all, r_all, mat = _su_reduce(items, roots, gate, chi, shifted)
+        return ((q_all, r_all, mat) + ((_gram(mat),) if gram else ())
+                + tuple(shifted))
 
-    q_all, r_all, mat, *h = run.stretch(1, reduce)
+    q_all, r_all, mat, *rest = run.stretch(1, reduce)
+    h, shifted = rest[:int(gram)], rest[int(gram):]
+    for took in shifted:  # CholeskyQR's passes: the matrices shifted
+        _CHOL_FACTORS.add(took.numel())
+        _CHOL_SHIFTED.add_device(took)
     with span("su.split"):
         factors = _eigh(h[0]) if gram else _svd(mat)
     factors = [run.fixed(f"split{i}", f) for i, f in enumerate(factors)]

@@ -32,6 +32,7 @@ PARENT = {
     "bp.update": "layer", "bp.sweep": "bp.update",
     "bp.messages": "bp.sweep", "bp.converge_read": "bp.sweep",
     "su.group": "layer", "su.roots": "su.group", "su.qr": "su.group",
+    "su.qr.cholesky": "su.qr",
     "su.theta": "su.group", "su.split": "su.group", "su.finish": "su.group",
     "linalg.roots": "su.roots", "linalg.eigh": "su.split",
 }
@@ -89,13 +90,32 @@ def _names_and_parents(spans):
         (s.name, by_id[s.parent].name if s.parent else None) for s in spans)
 
 
+def _under(event, name) -> bool:
+    """Whether a profiler event ran inside a range ``name``."""
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name == name:
+            return True
+        parent = parent.cpu_parent
+    return False
+
+
 def test_tracing_is_off_by_default_and_the_off_path_changes_nothing(
         gram_split, monkeypatch):
     """Off: the layer's outputs are bit for bit those of a traced run, no
     counter moves, no CUDA event is made, and the profiler records the
-    same operations as in a traced run, less the program's ranges."""
+    same operations as in a traced run, less the program's ranges and the
+    device sums of its counters (CholeskyQR's shifted matrices; each put
+    under a range of its own here)."""
     spec, state, layer, site, bond = _field()
     assert not profiling.is_tracing()
+    accumulate = profiling._Tracer.accumulate
+
+    def labelled(self, name, x):
+        with torch.profiler.record_function("tnqs.device_sum"):
+            accumulate(self, name, x)
+
+    monkeypatch.setattr(profiling._Tracer, "accumulate", labelled)
 
     def no_event(*a, **k):
         raise AssertionError("a CUDA event was made")
@@ -119,9 +139,11 @@ def test_tracing_is_off_by_default_and_the_off_path_changes_nothing(
     assert data["spans"] and data["counters"]["bp.sweeps"] > 0
 
     off_ops = collections.Counter(e.name for e in off_prof.events())
-    on_ops = collections.Counter(e.name for e in on_prof.events())
+    on_ops = collections.Counter(e.name for e in on_prof.events()
+                                 if not _under(e, "tnqs.device_sum"))
     ranges = {n for n in on_ops if n.startswith("tnqs.")}
     assert "tnqs.layer" in ranges and "tnqs.readout" in ranges
+    assert on_ops["tnqs.device_sum"] > 0
     assert not any(n.startswith("tnqs.") for n in off_ops)
     assert off_ops == on_ops - collections.Counter(
         {n: on_ops[n] for n in ranges})
