@@ -37,7 +37,9 @@ Phases, each printing its checks and seconds:
    1e-4, and the recorded inputs are checked as in phase 3; then the
    benchmark's Eagle field layer at θ_h = 0.961737, 8 steps (where
    CholeskyQR2 once returned NaN): ⟨Z⟩ finite, no graph capture refused,
-   the shifted CholeskyQR factors logged;
+   the shifted CholeskyQR factors logged; after two warm-up steps, per
+   step one update call and one K2 launch at n=256 per colour group, one
+   graph key per colour group, every update replayed, and the memory peak;
 5. physics: 3x3 TFIM at χ=8, cutoff 0, complex64, BP ⟨Z⟩ against the
    dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4; then the
    ``[su_graphs]`` line: the field layer at the benchmark quench's shape,
@@ -911,12 +913,25 @@ def eagle_sweep_check(tt, dev, theta_h=0.961737, steps=8, chi=64):
     fast stack with K3, from |0…0⟩ at the θ_h where CholeskyQR2 used to
     return NaN (steps 6-7): ⟨Z⟩ finite after every step, no capture of the
     update's graphs refused, and the CholeskyQR factors that took a shift
-    (``qr.chol_shifted`` of ``qr.chol_factors``) logged."""
+    (``qr.chol_shifted`` of ``qr.chol_factors``) logged.  After the two
+    warm-up steps (eager, capture), per step: one update call per colour
+    group with all its buckets (``su.group`` spans, ``su.group.buckets``),
+    one K2 launch at n=256 per colour group (of ``launches.jacobi_eigh``),
+    one graph key per colour group, every update replayed; the device's
+    memory peak over the steps is logged."""
     from tensornetworkquantumsimulator_torch import parallel as par
+    from tensornetworkquantumsimulator_torch.parallel import engine
     from tensornetworkquantumsimulator_torch.parallel import su_graphs
     from tensornetworkquantumsimulator_torch.utils import profiling
 
-    with knobs(dict(FAST_STACK, TNQS_BP_KERNEL="1")):
+    sizes = []
+
+    def recorded(h, *args, _inner=engine.jacobi_eigh, **kwargs):
+        sizes.append(h.shape[-1])
+        return _inner(h, *args, **kwargs)
+
+    with knobs(dict(FAST_STACK, TNQS_BP_KERNEL="1")), \
+            patched(engine, "jacobi_eigh", recorded):
         su_graphs._cache.clear()
         g = tt.ibm_eagle_lattice()
         spec, state = par.batched_product_state(g, chi=chi,
@@ -930,19 +945,51 @@ def eagle_sweep_check(tt, dev, theta_h=0.961737, steps=8, chi=64):
         bond = torch.full((len(spec.edges),), -np.pi / 2,
                           dtype=torch.float32, device=dev)
         z_op = tt.op_matrix("Z", 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profiling.tracing() as handle:
             for step in range(1, steps + 1):
+                if step == 3:
+                    torch.cuda.synchronize()
+                    warm = handle.collect()
+                    warm_sizes = len(sizes)
                 state, _ = layer(state, site, bond)
                 z = par.local_expectations(spec, state, z_op).real
                 assert torch.isfinite(z).all(), \
                     f"eagle sweep: non-finite <Z> at step {step}"
-            c = handle.collect()["counters"]
+            data = handle.collect()
+        torch.cuda.synchronize()
         calls = graph_calls()
+    c = data["counters"]
     assert calls["refused"] == 0, f"eagle sweep: graphs refused: {calls}"
     log("chi64", f"Eagle field layer at theta_h {theta_h}, {steps} steps "
                  f"from |0...0>: <Z> finite; CholeskyQR factors shifted "
                  f"{c['qr.chol_shifted']} of {c['qr.chol_factors']}; update "
                  f"graphs {calls}")
+    # per step after the two warm-up steps
+    n = steps - 2
+    moved = {k: (c.get(k, 0) - warm["counters"].get(k, 0)) / n
+             for k in ("launches.jacobi_eigh", "su.group.buckets",
+                       "su.graph.replays", "su.graph.eager")}
+    group_calls = (sum(s.name == "su.group" for s in data["spans"])
+                   - sum(s.name == "su.group" for s in warm["spans"])) / n
+    k2_256 = sizes[warm_sizes:].count(256) / n
+    updates = moved["su.graph.replays"] / 3 + moved["su.graph.eager"]
+    share = moved["su.graph.replays"] / 3 / updates if updates else 0.0
+    groups = len(spec.color_groups)
+    peak = torch.cuda.max_memory_allocated()
+    log("chi64", f"group fold, per step after 2 warm-up steps: update calls "
+                 f"{group_calls:g} ({groups} colour groups), buckets per "
+                 f"call {moved['su.group.buckets'] / group_calls:.3f} "
+                 f"(buckets {[len(grp) for grp in spec.color_groups]}); K2 "
+                 f"launches at n=256 {k2_256:g} of launches.jacobi_eigh "
+                 f"{moved['launches.jacobi_eigh']:g}; graph keys "
+                 f"{len(su_graphs._cache)}; replay share {share:.3f}; device "
+                 f"memory peak {peak} bytes allocated over the {steps} steps "
+                 f"(6,549,323,776 before the fold)")
+    assert group_calls == groups and k2_256 == groups, (group_calls, k2_256)
+    assert len(su_graphs._cache) == groups and share == 1.0, (
+        len(su_graphs._cache), share)
 
 
 def main_path(counters, name, run, env, required, targets):
@@ -992,8 +1039,9 @@ def su_graphs_line(tt, dev, card) -> dict:
     after each, its update replayed as CUDA graphs against the eager update
     (``su_graphs``' capture check patched to refuse): host ms of the layer
     call and wall ms of the step (medians of steps 3-22), the replay share
-    of those steps (replays / (replays + eager updates)) and max |Δ⟨Z⟩|
-    over all 22 steps."""
+    of those steps (replays / (replays + eager updates)), the update calls
+    a step and the slot-pair buckets per call (``su.group`` spans,
+    ``su.group.buckets``) and max |Δ⟨Z⟩| over all 22 steps."""
     from tensornetworkquantumsimulator_torch.parallel import su_graphs
     from tensornetworkquantumsimulator_torch.utils import profiling
 
@@ -1014,34 +1062,45 @@ def su_graphs_line(tt, dev, card) -> dict:
         with profiling.tracing() as handle:
             for step in range(22):
                 if step == 2:
-                    before = dict(handle.collect()["counters"])
+                    warm = handle.collect()
+                    before = dict(warm["counters"])
                 t0 = time.perf_counter()
                 state, _ = layer(state, site, bond)
                 t1 = time.perf_counter()
                 zs.append(tt.local_expectations(spec, state, z_op).real.cpu())
                 host.append((t1 - t0) * 1e3)
                 wall.append((time.perf_counter() - t0) * 1e3)
-            after = handle.collect()["counters"]
+            data = handle.collect()
+        after = data["counters"]
         moved = {k: after.get(k, 0) - before.get(k, 0)
-                 for k in ("su.graph.replays", "su.graph.eager")}
+                 for k in ("su.graph.replays", "su.graph.eager",
+                           "su.group.buckets")}
         calls = moved["su.graph.replays"] / 3 + moved["su.graph.eager"]
+        groups = (sum(s.name == "su.group" for s in data["spans"])
+                  - sum(s.name == "su.group" for s in warm["spans"]))
         return (torch.stack(zs), float(np.median(host[2:])),
                 float(np.median(wall[2:])),
-                moved["su.graph.replays"] / 3 / calls if calls else 0.0)
+                moved["su.graph.replays"] / 3 / calls if calls else 0.0,
+                (groups / 20, moved["su.group.buckets"] / groups))
 
     with knobs(FAST_STACK):
-        z_graph, host_g, wall_g, share_g = run()
+        z_graph, host_g, wall_g, share_g, (updates, per_call) = run()
         with patched(su_graphs, "_capturable", lambda device: False):
-            z_eager, host_e, wall_e, share_e = run()
+            z_eager, host_e, wall_e, share_e, _ = run()
     dz = float((z_graph - z_eager).abs().max())
     out = {"host_ms": [host_g, host_e], "wall_ms": [wall_g, wall_e],
-           "replay_share": [share_g, share_e], "max_abs_dz": dz, "card": card}
+           "replay_share": [share_g, share_e], "update_calls_per_step": updates,
+           "buckets_per_call": per_call, "max_abs_dz": dz, "card": card}
     log("su_graphs", f"5x5 chi=10 c64 field layer, graphs / eager: host ms "
                      f"per layer call {host_g:.2f} / {host_e:.2f}, wall ms per "
                      f"step {wall_g:.2f} / {wall_e:.2f}; replay share after 2 "
-                     f"warm-up steps {share_g:.3f} / {share_e:.3f}; max "
+                     f"warm-up steps {share_g:.3f} / {share_e:.3f}; update "
+                     f"calls per step {updates:g}, buckets per call "
+                     f"{per_call:.3f} (buckets per colour group "
+                     f"{[len(grp) for grp in spec.color_groups]}); max "
                      f"|dZ| over 22 steps {dz:.2e} ({card})")
     assert share_g == 1.0 and share_e == 0.0, (share_g, share_e)
+    assert updates == len(spec.color_groups), updates
     assert dz <= 1e-6, f"su_graphs: graphs vs eager max |dZ| {dz:.3e} > 1e-6"
     return out
 

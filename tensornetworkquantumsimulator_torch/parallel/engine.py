@@ -68,6 +68,8 @@ _REFACTOR_READS = Counter("host.reads.qr.refactor")
 # ones that took a shifted factorization (a device sum; `_gram_cholesky`)
 _CHOL_FACTORS = Counter("qr.chol_factors")
 _CHOL_SHIFTED = Counter("qr.chol_shifted")
+# the slot-pair buckets handed to each `apply_color_group` call
+_GROUP_BUCKETS = Counter("su.group.buckets")
 
 
 def _svd_alg() -> str:
@@ -674,23 +676,40 @@ def _cat(xs, dim: int) -> torch.Tensor:
     return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
 
 
+def _bucket_gates(gate: torch.Tensor, sizes) -> list:
+    """Each bucket's gate, for buckets of ``sizes`` edges: a shared gate
+    [d, d, d, d] as it is, per-edge gates [ΣB, d, d, d, d] (stacked in
+    bucket order) sliced into each bucket's [B, d, d, d, d]."""
+    if gate.ndim == 4:
+        return [gate] * len(sizes)
+    return list(torch.split(gate, list(sizes)))
+
+
 def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
                       chi: int, cutoff: float, normalize_tensors: bool = True):
-    """Apply one 2-site gate to every edge of a colour group
-    (`2dIsing_dynamics.jl:25-28`, batched).  All slot-pair buckets of the
-    group share ONE stacked roots call, ONE stacked QR and ONE stacked
-    split; ``TNQS_FUSE_BUCKETS=0`` runs per-bucket updates.  Bucket indices
-    may be static tuples or device tensors.  On CUDA the update replays as
-    CUDA graphs where its route allows (``su_graphs``)."""
+    """Apply a 2-site gate to every edge of a colour group
+    (`2dIsing_dynamics.jl:25-28`, batched): one gate [d, d, d, d] shared by
+    every edge, or per-edge gates [ΣB, d, d, d, d] stacked in bucket order.
+    All slot-pair buckets of the group share ONE stacked roots call, ONE
+    stacked QR and ONE stacked split; ``TNQS_FUSE_BUCKETS=0`` runs
+    per-bucket updates.  Bucket indices may be static tuples or device
+    tensors.  Errors come back bucket by bucket.  On CUDA the update
+    replays as CUDA graphs where its route allows (``su_graphs``)."""
     with span("su.group"):
         dev = state.tensors.device
         group = [(b.slot_u, b.slot_v, _index(b.u_idx, dev),
                   _index(b.v_idx, dev)) for b in buckets]
         if not group:
             return state, torch.zeros((0,), device=dev)
+        _GROUP_BUCKETS.add(len(group))
+        if _fuse_buckets():
+            parts = [(group, gate)]
+        else:
+            parts = [([b], g) for b, g in zip(group, _bucket_gates(
+                gate, [b[2].shape[0] for b in group]))]
         errs = []
-        for part in [group] if _fuse_buckets() else [[b] for b in group]:
-            state, err = _group_update(state, part, gate, chi, cutoff,
+        for part, part_gate in parts:
+            state, err = _group_update(state, part, part_gate, chi, cutoff,
                                        normalize_tensors)
             errs.append(err)
         return state, _cat(errs, 0)
@@ -744,7 +763,8 @@ def _su_env(items):
 
 def _su_reduce(items, roots_all, gate, chi, shifted=None):
     """Stretch 1: absorb √env on each endpoint's other legs, QR-reduce every
-    endpoint in one stacked batch, gate each edge's two R factors.
+    endpoint in one stacked batch, gate each edge's two R factors (each
+    bucket its own slice of per-edge gates, :func:`_bucket_gates`).
     Returns (q_all, r_all, mat [ΣB, r·d, r·d]); ``shifted`` as for
     :func:`_qr_split`."""
     D, d = items[0][2].ndim - 2, items[0][2].shape[-1]
@@ -758,11 +778,12 @@ def _su_reduce(items, roots_all, gate, chi, shifted=None):
         q_all, r_all, _ = _qr_reduce(torch.cat(tps, dim=0), shifted)
     with span("su.theta"):
         mats, off = [], 0
-        for _su, _sv, tu, _tv, _mu, _mv in items:
+        gates = _bucket_gates(gate, [it[2].shape[0] for it in items])
+        for (_su, _sv, tu, _tv, _mu, _mv), g in zip(items, gates):
             B = tu.shape[0]
             ru = r_all[2 * off: 2 * off + B].reshape(B, -1, chi, d)
             rv = r_all[2 * off + B: 2 * off + 2 * B].reshape(B, -1, chi, d)
-            mats.append(_theta(ru, rv, gate))
+            mats.append(_theta(ru, rv, g))
             off += B
     return q_all, r_all, _cat(mats, 0)
 

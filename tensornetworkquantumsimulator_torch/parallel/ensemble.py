@@ -259,8 +259,10 @@ class FieldLayer(nn.Module):
     per-vertex channel, then a final refresh.
 
     Its buffers hold the graph tables, each bucket's endpoint indices and
-    each bucket's positions into the bond-angle vector, so ``.to(device)``
-    moves them once.  ``forward(state, site_thetas, bond_thetas[,
+    each colour group's positions into the bond-angle vector (its buckets'
+    edges in bucket order), so ``.to(device)`` moves them once.  Each
+    colour group is one :func:`apply_color_group` call, its buckets' gates
+    stacked.  ``forward(state, site_thetas, bond_thetas[,
     noise_params])`` runs one realization; :meth:`ensemble` runs stacked
     states (through :func:`ensemble_fn`)."""
 
@@ -284,18 +286,23 @@ class FieldLayer(nn.Module):
         self.register_buffer("nbr", tables.nbr)
         self.register_buffer("nbr_slot", tables.nbr_slot)
         self.register_buffer("mask", tables.mask)
-        # the plan names buffers, so it stays valid after .to(device)
+        # the plan names buffers, so it stays valid after .to(device):
+        # per colour group (its buckets' (slot_u, slot_v, u, v), its edges'
+        # positions into the bond angles, its bucket sizes)
         self._groups = []
         for gi, (group, eidxs) in enumerate(
                 zip(spec.color_groups, _group_angle_tables(spec))):
             plan = []
-            for bi, (b, eidx) in enumerate(zip(group, eidxs)):
-                names = tuple(f"g{gi}_b{bi}_{k}" for k in "uve")
-                for name, arr in zip(names, (b.u_idx, b.v_idx, eidx)):
+            for bi, b in enumerate(group):
+                names = tuple(f"g{gi}_b{bi}_{k}" for k in "uv")
+                for name, arr in zip(names, (b.u_idx, b.v_idx)):
                     self.register_buffer(
                         name, torch.as_tensor(np.asarray(arr, np.int64)))
                 plan.append((b.slot_u, b.slot_v) + names)
-            self._groups.append(plan)
+            self.register_buffer(f"g{gi}_e", torch.as_tensor(
+                np.concatenate(eidxs).astype(np.int64)))
+            self._groups.append((tuple(plan), f"g{gi}_e",
+                                 tuple(len(e) for e in eidxs)))
 
     # -- arguments ---------------------------------------------------------
 
@@ -371,22 +378,28 @@ class FieldLayer(nn.Module):
         d = gate.shape[-1]
         state = apply_one_site(state, gate.reshape(E * V, d, d).to(dtype))
         errs = []
-        for plan in self._groups:
+        for plan, e_name, sizes in self._groups:
             # the 1-site sweep already touched every vertex, so every group
             # needs a refresh (matches BatchedCircuit's needs_refresh)
             state = refresh(state)
-            for su, sv, u_name, v_name, e_name in plan:
-                eidx = getattr(self, e_name)
-                gmat = self.bond_gate_fn(self.bond_pauli, bond[:, eidx])
-                bucket = SlotPairBucket(
-                    su, sv, member_indices(getattr(self, u_name), E, V),
-                    member_indices(getattr(self, v_name), E, V))
-                state, err = apply_color_group(
-                    state, (bucket,),
-                    gmat.reshape(-1, d, d, d, d).to(dtype),
-                    self.chi, self.cutoff, self.normalize_tensors,
-                )
-                errs.append(err.reshape(E, -1))
+            buckets = [SlotPairBucket(
+                su, sv, member_indices(getattr(self, u_name), E, V),
+                member_indices(getattr(self, v_name), E, V))
+                for su, sv, u_name, v_name in plan]
+            # the group's angles [E, ΣB], in the gate order of its rows:
+            # bucket by bucket, each bucket member-major
+            angles = bond[:, getattr(self, e_name)]
+            if E > 1 and len(sizes) > 1:
+                angles = torch.cat([a.reshape(-1)
+                                    for a in angles.split(sizes, dim=1)])
+            gmat = self.bond_gate_fn(self.bond_pauli, angles)
+            state, err = apply_color_group(
+                state, buckets, gmat.reshape(-1, d, d, d, d).to(dtype),
+                self.chi, self.cutoff, self.normalize_tensors,
+            )
+            # errors come bucket by bucket, each member-major
+            errs += [e.reshape(E, -1)
+                     for e in err.split([E * b for b in sizes])]
         if noise is not None:
             # noise after the unitary part: one composed per-vertex channel
             chan = self.noise_gate_fn(self.noise_names[0], noise[:, 0])

@@ -59,7 +59,7 @@ _REPLAYS = Counter("su.graph.replays")  # stretches replayed
 _EAGER = Counter("su.graph.eager")  # updates that ran eagerly
 _EVICTIONS = Counter("su.graph.evictions")  # keys dropped from the cache
 
-MAX_KEYS = 32  # a 5×5 field layer has at most 15
+MAX_KEYS = 32  # a 5×5 field layer has 4, one per colour group
 _QR_ROUTES = ("cholqr1", "cholqr2", "defer")
 
 _cache: OrderedDict = OrderedDict()  # key -> _Entry, least recent first

@@ -83,9 +83,10 @@ def _field(chi=4, dims=(3, 3), device="cpu", bp_maxiter=20,
     return spec, state, layer
 
 
-def _buckets(layer) -> int:
-    """Bucket updates a layer step makes (one ``apply_color_group`` each)."""
-    return sum(len(plan) for plan in layer._groups)
+def _updates(layer) -> int:
+    """Updates a layer step makes: one ``apply_color_group`` per colour
+    group, its slot-pair buckets stacked."""
+    return len(layer._groups)
 
 
 def _angles(spec, members, gen, device="cpu"):
@@ -133,7 +134,7 @@ def test_the_segmented_update_equals_the_eager_one_bit_for_bit(
         assert torch.equal(g_state.tensors, e_state.tensors)
         assert torch.equal(g_state.messages, e_state.messages)
         assert torch.equal(g_err, e_err)
-    nb = _buckets(layer)
+    nb = _updates(layer)
     assert 1 <= keys <= nb
     # each key's first call ran eagerly, every other call replayed S0-S2
     assert counts["su.graph.eager"] == keys
@@ -177,8 +178,9 @@ def test_the_fused_group_update_replays_bit_for_bit(plain_graphs,
 def test_k1_and_k2_are_called_once_per_bucket_on_the_graph_path(
         plain_graphs, monkeypatch):
     """``engine._pseudo_roots`` and ``engine._eigh`` stay eager calls looked
-    up on ``engine``: a wrapper put there sees one call of each per bucket
-    in every step, eager, capturing or replaying."""
+    up on ``engine``: a wrapper put there sees one call of each per update
+    (one per colour group, its buckets stacked) in every step, eager,
+    capturing or replaying."""
     calls = collections.Counter()
     for name in ("_pseudo_roots", "_eigh"):
         inner = getattr(engine, name)
@@ -197,7 +199,7 @@ def test_k1_and_k2_are_called_once_per_bucket_on_the_graph_path(
             state, _ = layer(state, *_angles(spec, 1, gen))
             per_step.append(dict(calls))
         counts = _counts(handle)
-    nb = _buckets(layer)
+    nb = _updates(layer)
     assert per_step == [{"_pseudo_roots": nb, "_eigh": nb}] * 3
     assert counts["su.graph.replays"] > 0
 
@@ -365,7 +367,7 @@ def _quench(members, experiments, eager, monkeypatch):
             z = par.local_expectations(spec, engine.fold_members(state)
                                        if members > 1 else state, _Z)
             zs.append(z.real.reshape(members, V).cpu())
-    return torch.stack(zs), counts, _buckets(layer)
+    return torch.stack(zs), counts, _updates(layer)
 
 
 @pytest.mark.card
@@ -374,7 +376,7 @@ def test_replayed_quench_matches_the_eager_path_on_the_card(
         fast_stack, monkeypatch, members):
     """Two 20-step experiments, a new hx each (per member for E = 4): ⟨Z⟩
     of the replayed layer within 1e-6 of the eager layer's; captures (3 per
-    key) only in the first two steps, then 3 replays per bucket a step."""
+    key) only in the first two steps, then 3 replays per update a step."""
     if not torch.cuda.is_available():
         pytest.skip(_CARD)
     set_default_device("cuda")
