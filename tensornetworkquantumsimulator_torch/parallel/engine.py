@@ -17,9 +17,10 @@ environment roots to the Jacobi kernels (K1/K2, ``cuda_linalg``);
 ``TNQS_ROOTS_FUSED`` (1) keeps the roots stage in one K1 launch;
 ``TNQS_SVD_ALG`` ∈ {default, gram, jacobi, qr, polar} picks the truncated
 split; ``TNQS_QR_ALG`` ∈ {default, cholqr1, cholqr2, polar, defer} the
-QR-reduce; ``TNQS_FUSE_BUCKETS`` (1) stacks the buckets of a colour group;
-``TNQS_BP_KERNEL`` (0) routes degree-3 BP messages to K3 (``cuda_bp``).
-64-bit dtypes never take a kernel path.
+QR-reduce; ``TNQS_BP_KERNEL`` (0) routes degree-3 BP messages to K3
+(``cuda_bp``).  64-bit dtypes never take a kernel path.  A colour group's
+slot-pair buckets always run as one stacked update (the reference's
+per-bucket switch has no counterpart here).
 
 On a CUDA device every matmul runs in full float32 (no TF32), as the
 reference runs every einsum at ``Precision.HIGHEST``:
@@ -667,10 +668,6 @@ def _su_finish(q, fac, inv_roots, slot, t_ref, chi, d):
     return t
 
 
-def _fuse_buckets() -> bool:
-    return os.environ.get("TNQS_FUSE_BUCKETS", "1") != "0"
-
-
 def _cat(xs, dim: int) -> torch.Tensor:
     """``torch.cat``, less the copy of a lone tensor."""
     return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
@@ -691,10 +688,9 @@ def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
     (`2dIsing_dynamics.jl:25-28`, batched): one gate [d, d, d, d] shared by
     every edge, or per-edge gates [ΣB, d, d, d, d] stacked in bucket order.
     All slot-pair buckets of the group share ONE stacked roots call, ONE
-    stacked QR and ONE stacked split; ``TNQS_FUSE_BUCKETS=0`` runs
-    per-bucket updates.  Bucket indices may be static tuples or device
-    tensors.  Errors come back bucket by bucket.  On CUDA the update
-    replays as CUDA graphs where its route allows (``su_graphs``)."""
+    stacked QR and ONE stacked split.  Bucket indices may be static tuples
+    or device tensors.  Errors come back bucket by bucket.  On CUDA the
+    update replays as CUDA graphs where its route allows (``su_graphs``)."""
     with span("su.group"):
         dev = state.tensors.device
         group = [(b.slot_u, b.slot_v, _index(b.u_idx, dev),
@@ -702,17 +698,8 @@ def apply_color_group(state: BatchedState, buckets, gate: torch.Tensor,
         if not group:
             return state, torch.zeros((0,), device=dev)
         _GROUP_BUCKETS.add(len(group))
-        if _fuse_buckets():
-            parts = [(group, gate)]
-        else:
-            parts = [([b], g) for b, g in zip(group, _bucket_gates(
-                gate, [b[2].shape[0] for b in group]))]
-        errs = []
-        for part, part_gate in parts:
-            state, err = _group_update(state, part, part_gate, chi, cutoff,
-                                       normalize_tensors)
-            errs.append(err)
-        return state, _cat(errs, 0)
+        return _group_update(state, group, gate, chi, cutoff,
+                             normalize_tensors)
 
 
 def _group_update(state, group, gate, chi, cutoff, normalize_tensors):
@@ -905,17 +892,6 @@ def _group_core(items, gate, chi, cutoff, normalize_tensors, run=_Eager):
     return [flat[i: i + 4] for i in range(0, len(flat), 4)]
 
 
-def _bucket_updates(items, gate, chi, cutoff, normalize_tensors):
-    """The simple update of a colour group's buckets on gathered endpoint
-    data ``items``: one stacked update across the buckets, or one per
-    bucket with ``TNQS_FUSE_BUCKETS=0`` (as :func:`apply_color_group`).
-    Eager: the callers gather from sharded or padded tables.  Returns
-    [(tu_new, tv_new, msg, err)] in bucket order."""
-    parts = [items] if _fuse_buckets() else [[it] for it in items]
-    return [r for part in parts
-            for r in _group_core(part, gate, chi, cutoff, normalize_tensors)]
-
-
 def _select_rows(old, new, inv, wr):
     """Write-back without scatter: ``old[p] <- new[inv[p]] where wr[p]``.
 
@@ -940,7 +916,8 @@ def apply_color_group_masked(
     buckets are padded to a uniform per-group shape: pad rows gather vertex
     0, compute garbage, and write nothing back (:func:`_select_rows`);
     their errors read 0.  Same update as :func:`apply_color_group`
-    (:func:`_bucket_updates`); only the gather and the write-back differ.
+    (:func:`_group_core`, eager: the rows come from padded tables); only
+    the gather and the write-back differ.
     (``make_layer_fn(scan_groups=True)`` runs the unrolled layer: this is
     the entry point for callers holding such tables.)"""
     items = []
@@ -951,7 +928,7 @@ def apply_color_group_masked(
             state.tensors[u_idx], state.tensors[v_idx],
             state.messages[u_idx], state.messages[v_idx],
         ))
-    results = _bucket_updates(items, gate, chi, cutoff, normalize_tensors)
+    results = _group_core(items, gate, chi, cutoff, normalize_tensors)
     tensors, messages = state.tensors, state.messages.clone()
     errs = []
     for (slot_u, slot_v), tb, (tu_new, tv_new, msg, err) in zip(

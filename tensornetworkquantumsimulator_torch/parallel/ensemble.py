@@ -32,26 +32,21 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..devices import resolve_device
 from ..models.gates import _kron_pauli
-from ..utils.profiling import span
-from .engine import (
+# apply_color_group and bp_update stay names of this module: the
+# benchmark's spans (portbench/spans.py) wrap them here and on the engine
+from .engine import (  # noqa: F401
     BatchedState,
-    GraphTables,
     apply_color_group,
-    apply_one_site,
     bp_update,
     fold_members,
-    graph_tables,
     local_expectations,
-    member_indices,
-    member_tables,
     unfold_members,
 )
-from .structure import BatchedGraphSpec, SlotPairBucket, compile_graph
-from .trotter import TrotterLayer
+from .structure import BatchedGraphSpec, compile_graph
+from .trotter import ColourGroupLayer, _group_rows
 
 
 def _as_tensor(x, device=None) -> torch.Tensor:
@@ -251,20 +246,16 @@ def _group_angle_tables(spec: BatchedGraphSpec):
     )
 
 
-class FieldLayer(nn.Module):
-    """A parametric Trotter layer (the shared body of the reference's
-    ``make_field_layer_fn`` and ``make_noisy_field_layer_fn``): one
-    composed per-vertex rotation, then every colour group's bond rotations
-    with a BP refresh before each group, then (d=4) one composed
-    per-vertex channel, then a final refresh.
-
-    Its buffers hold the graph tables, each bucket's endpoint indices and
-    each colour group's positions into the bond-angle vector (its buckets'
-    edges in bucket order), so ``.to(device)`` moves them once.  Each
-    colour group is one :func:`apply_color_group` call, its buckets' gates
-    stacked.  ``forward(state, site_thetas, bond_thetas[,
-    noise_params])`` runs one realization; :meth:`ensemble` runs stacked
-    states (through :func:`ensemble_fn`)."""
+class FieldLayer(ColourGroupLayer):
+    """A parametric Trotter layer (the reference's ``make_field_layer_fn``
+    and ``make_noisy_field_layer_fn``) on :class:`~.trotter.
+    ColourGroupLayer`'s body: one composed per-vertex rotation, then every
+    colour group's bond rotations with a BP refresh before each group,
+    then (d=4) one composed per-vertex channel, then a final refresh.
+    Each colour group also keeps its edges' positions into the bond-angle
+    vector (bucket order) as a buffer.  ``forward(state, site_thetas,
+    bond_thetas[, noise_params])`` runs one realization; :meth:`ensemble`
+    runs stacked states (through :func:`ensemble_fn`)."""
 
     def __init__(self, spec: BatchedGraphSpec, chi: int, *, site_gate_fn,
                  bond_gate_fn, site_paulis: tuple, bond_pauli: str,
@@ -272,41 +263,25 @@ class FieldLayer(nn.Module):
                  normalize_tensors: bool, bp_maxiter: int,
                  bp_tolerance: float | None, bp_damping: float,
                  final_update: bool):
-        super().__init__()
-        self.spec, self.chi = spec, chi
+        super().__init__(spec, chi, cutoff, normalize_tensors, bp_maxiter,
+                         bp_tolerance, bp_damping, final_update)
         self.site_gate_fn, self.bond_gate_fn = site_gate_fn, bond_gate_fn
         self.noise_gate_fn = noise_gate_fn
         self.site_paulis, self.bond_pauli = site_paulis, bond_pauli
         self.noise_names = noise_names
-        self.cutoff, self.normalize_tensors = cutoff, normalize_tensors
-        self.bp_kwargs = dict(maxiter=bp_maxiter, tolerance=bp_tolerance,
-                              damping=bp_damping)
-        self.final_update = final_update
-        tables = graph_tables(spec, "cpu")
-        self.register_buffer("nbr", tables.nbr)
-        self.register_buffer("nbr_slot", tables.nbr_slot)
-        self.register_buffer("mask", tables.mask)
-        # the plan names buffers, so it stays valid after .to(device):
-        # per colour group (its buckets' (slot_u, slot_v, u, v), its edges'
-        # positions into the bond angles, its bucket sizes)
-        self._groups = []
+        self._plan.append(("one", "site"))
         for gi, (group, eidxs) in enumerate(
                 zip(spec.color_groups, _group_angle_tables(spec))):
-            plan = []
-            for bi, b in enumerate(group):
-                names = tuple(f"g{gi}_b{bi}_{k}" for k in "uv")
-                for name, arr in zip(names, (b.u_idx, b.v_idx)):
-                    self.register_buffer(
-                        name, torch.as_tensor(np.asarray(arr, np.int64)))
-                plan.append((b.slot_u, b.slot_v) + names)
-            self.register_buffer(f"g{gi}_e", torch.as_tensor(
-                np.concatenate(eidxs).astype(np.int64)))
-            self._groups.append((tuple(plan), f"g{gi}_e",
-                                 tuple(len(e) for e in eidxs)))
+            # the 1-site sweep already touched every vertex, so every group
+            # needs a refresh (matches BatchedCircuit's needs_refresh)
+            self._add_group(f"g{gi}", group, True, f"g{gi}_e")
+            self._buffer(f"g{gi}_e", np.concatenate(eidxs).astype(np.int64))
+        if noise_names:  # noise after the unitary part
+            self._plan.append(("one", "noise"))
 
     # -- arguments ---------------------------------------------------------
 
-    def _angles(self, args, axes, E: int, device):
+    def _arguments(self, args, axes, E: int, device):
         """(site [E, S, V], bond [E, Eb], noise [E, C, V] | None) from the
         call's arguments; an argument with axis 0 carries one value per
         member, one with axis None is shared."""
@@ -335,83 +310,27 @@ class FieldLayer(nn.Module):
             out.append(x.expand((E,) + tuple(x.shape[lead:])))
         return out[0], out[1], (out[2] if C else None)
 
-    # -- the layer -----------------------------------------------------------
+    # -- the gates -----------------------------------------------------------
 
-    def forward(self, state: BatchedState, *params):
-        """One realization: ``(state, site_thetas, bond_thetas[,
-        noise_params]) -> (state, truncation_errors)``."""
-        site, bond, noise = self._angles(params, (None,) * len(params), 1,
-                                         state.tensors.device)
-        state, errs = self._run(state, 1, site, bond, noise)
-        return state, errs[0]
-
-    def ensemble(self, estate: BatchedState, params, axes):
-        """E stacked realizations ``estate`` ([E, V, ...]) in one batched
-        program; ``axes[i]`` is 0 when ``params[i]`` has a leading
-        ensemble axis and None when it is shared.  Returns (estate,
-        errors [E, n])."""
-        E = estate.tensors.shape[0]
-        site, bond, noise = self._angles(params, axes, E,
-                                         estate.tensors.device)
-        out, errs = self._run(fold_members(estate), E, site, bond, noise)
-        return unfold_members(out, E), errs
-
-    def _run(self, state, E, site, bond, noise):
-        with span("layer"):
-            return self._layer(state, E, site, bond, noise)
-
-    def _layer(self, state, E, site, bond, noise):
-        V = self.spec.num_vertices
-        dtype = state.tensors.dtype
-        tables = member_tables(GraphTables(self.nbr, self.nbr_slot,
-                                           self.mask), E, V)
-
-        def refresh(st):
-            return bp_update(self.spec, st, tables=tables, members=E,
-                             **self.bp_kwargs)
-
-        # compose the S rotations into ONE per-vertex gate so the state
-        # pays a single contraction
-        gate = self.site_gate_fn(self.site_paulis[0], site[:, 0])
-        for k in range(1, len(self.site_paulis)):
-            gate = self.site_gate_fn(self.site_paulis[k], site[:, k]) @ gate
+    def _one_site_gate(self, key, E, args):
+        """The S rotations (or, d=4, the C channels) composed into ONE
+        per-vertex gate [E·V, d, d], so the state pays a single
+        contraction."""
+        site, _bond, noise = args
+        names, fn, x = ((self.site_paulis, self.site_gate_fn, site)
+                        if key == "site" else
+                        (self.noise_names, self.noise_gate_fn, noise))
+        gate = fn(names[0], x[:, 0])
+        for k in range(1, len(names)):
+            gate = fn(names[k], x[:, k]) @ gate
         d = gate.shape[-1]
-        state = apply_one_site(state, gate.reshape(E * V, d, d).to(dtype))
-        errs = []
-        for plan, e_name, sizes in self._groups:
-            # the 1-site sweep already touched every vertex, so every group
-            # needs a refresh (matches BatchedCircuit's needs_refresh)
-            state = refresh(state)
-            buckets = [SlotPairBucket(
-                su, sv, member_indices(getattr(self, u_name), E, V),
-                member_indices(getattr(self, v_name), E, V))
-                for su, sv, u_name, v_name in plan]
-            # the group's angles [E, ΣB], in the gate order of its rows:
-            # bucket by bucket, each bucket member-major
-            angles = bond[:, getattr(self, e_name)]
-            if E > 1 and len(sizes) > 1:
-                angles = torch.cat([a.reshape(-1)
-                                    for a in angles.split(sizes, dim=1)])
-            gmat = self.bond_gate_fn(self.bond_pauli, angles)
-            state, err = apply_color_group(
-                state, buckets, gmat.reshape(-1, d, d, d, d).to(dtype),
-                self.chi, self.cutoff, self.normalize_tensors,
-            )
-            # errors come bucket by bucket, each member-major
-            errs += [e.reshape(E, -1)
-                     for e in err.split([E * b for b in sizes])]
-        if noise is not None:
-            # noise after the unitary part: one composed per-vertex channel
-            chan = self.noise_gate_fn(self.noise_names[0], noise[:, 0])
-            for k in range(1, len(self.noise_names)):
-                chan = self.noise_gate_fn(self.noise_names[k],
-                                          noise[:, k]) @ chan
-            state = apply_one_site(state, chan.reshape(E * V, d, d).to(dtype))
-        if self.final_update:
-            state = refresh(state)
-        if not errs:
-            return state, torch.zeros((E, 0), device=state.tensors.device)
-        return state, torch.cat(errs, dim=1)
+        return gate.reshape(E * self.spec.num_vertices, d, d)
+
+    def _group_gate(self, key, sizes, E, d, args):
+        """The group's bond rotations, one per edge and member."""
+        angles = _group_rows(args[1][:, getattr(self, key)], sizes)
+        return self.bond_gate_fn(self.bond_pauli, angles).reshape(
+            -1, d, d, d, d)
 
 
 def _site_paulis(site_pauli) -> tuple:
@@ -555,7 +474,7 @@ def ensemble_fn(fn, in_axes=0, jit: bool = True) -> Callable:
     ...)`` shares an argument across the ensemble).  The state's axis must
     be 0.  ``jit`` is accepted for signature parity and changes nothing."""
     del jit
-    if not isinstance(fn, (FieldLayer, TrotterLayer)):
+    if not isinstance(fn, ColourGroupLayer):
         raise TypeError("ensemble_fn runs the layers of make_field_layer_fn, "
                         "make_noisy_field_layer_fn and make_layer_fn")
 

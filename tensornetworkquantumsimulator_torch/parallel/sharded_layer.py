@@ -11,10 +11,9 @@ sharded_layer``:
   ``ppermute``s (gather the partner's tensor and messages) and whose
   partner-side update goes back with two more — the analogue of the
   reference's sequential per-edge sweep (`apply_gates.jl:60-85`);
-- every shard updates all of its buckets of a group through the engine's
-  update (``engine._bucket_updates``, as ``apply_color_group_masked``
-  does), so the Jacobi kernels (K1, K2) run inside every shard on the fast
-  stack;
+- every shard updates all of its buckets of a group in one stacked update
+  (``engine._group_core``, as ``apply_color_group_masked`` does), so the
+  Jacobi kernels (K1, K2) run inside every shard on the fast stack;
 - the write-back is the reference's exact select, ``old[p] <- new[inv[p]]
   where wr[p]`` (``engine._select_rows``): each row receives either its
   exact new value or its exact old one;
@@ -40,7 +39,7 @@ import numpy as np
 import torch
 
 from .engine import (
-    _bucket_updates,
+    _group_core,
     _select_rows,
     _site_transfer,
     default_batched_tolerance,
@@ -275,8 +274,7 @@ def _apply_group(mesh, buckets, tensors, messages, gates, chi, cutoff,
             items.append((b.slot_u, b.slot_v, tensors[s][u], tv,
                           messages[s][u], mv))
             which.append(i)
-        outs = (_bucket_updates(items, gates[s], chi, cutoff,
-                                normalize_tensors)
+        outs = (_group_core(items, gates[s], chi, cutoff, normalize_tensors)
                 if items else [])
         res = [None] * len(buckets)
         for i, o in zip(which, outs):

@@ -7,13 +7,15 @@ compiles it into one layer over a :class:`~.engine.BatchedState`:
   applied as a single einsum;
 - runs of 2-site gates are segmented into matchings (refreshing BP exactly
   where the reference's overlap-amortization would, `apply_gates.jl:60-85`),
-  each matching bucketed by slot pair and applied as a batched simple
-  update.
+  each matching bucketed by slot pair and applied as ONE batched simple
+  update across its buckets.
 
 The layer is an ``nn.Module``: its buffers hold the fused one-site gates,
 the two-site gates, the bucket index tensors and the neighbour tables, so
 ``layer.to(device)`` (or ``.to(device, dtype)``) moves them once and no
-index table is copied to the device per call.
+index table is copied to the device per call.  Its body,
+:class:`ColourGroupLayer`, is also the parametric layer's
+(``ensemble.FieldLayer``).
 """
 
 from __future__ import annotations
@@ -31,12 +33,11 @@ from ..models import gates as _gates
 from ..utils.graphs import NamedGraph
 from ..utils.lattices import _gate_vertices
 from ..utils.profiling import span
+from . import engine
 from .engine import (
     BatchedState,
     GraphTables,
-    apply_color_group,
     apply_one_site,
-    bp_update,
     fold_members,
     graph_tables,
     local_expectations,
@@ -192,116 +193,166 @@ class BatchedCircuit:
         self.segments = tuple(segments)
 
 
-def _per_member(x: torch.Tensor, members: int) -> torch.Tensor:
-    """Rows of ``x`` repeated once per ensemble member (member-major)."""
-    return x if members == 1 else x.repeat((members,) + (1,) * (x.ndim - 1))
+def _group_rows(x: torch.Tensor, sizes) -> torch.Tensor:
+    """A colour group's per-edge rows [E, ΣB, ...] (each member's edges in
+    bucket order, buckets of ``sizes``) in its update's order [E·ΣB, ...]:
+    bucket by bucket, each member-major (as ``member_indices`` folds)."""
+    if x.shape[0] == 1 or len(sizes) == 1:
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+    return torch.cat([p.reshape((-1,) + tuple(x.shape[2:]))
+                      for p in x.split(list(sizes), dim=1)])
 
 
-class TrotterLayer(nn.Module):
-    """One compiled Trotter layer: ``state -> (state, truncation_errors)``."""
+def _group_errors(err: torch.Tensor, E: int, sizes) -> list:
+    """The inverse of :func:`_group_rows` for the update's errors [E·ΣB]:
+    each bucket's [E, B], in bucket order."""
+    return [e.reshape(E, -1) for e in err.split([E * b for b in sizes])]
 
-    def __init__(self, circuit: BatchedCircuit, chi: int, cutoff: float,
+
+class ColourGroupLayer(nn.Module):
+    """The body of :class:`TrotterLayer` and ``ensemble.FieldLayer``:
+    ``state -> (state, truncation_errors)``.
+
+    It runs a plan of one-site steps and colour-group steps.  A colour-group
+    step refreshes BP where the plan asks, then makes ONE
+    :func:`~.engine.apply_color_group` call over the group's buckets, with
+    a shared gate [d, d, d, d] or per-edge gates in :func:`_group_rows`
+    order; a final refresh closes the layer.  The buffers hold the graph
+    tables and each bucket's endpoints, so ``.to(device)`` moves them
+    once.  A subclass fills the plan and builds the gates: ``_arguments``
+    checks a call's parameters, ``_one_site_gate`` and ``_group_gate``
+    build a step's gates from them."""
+
+    def __init__(self, spec: BatchedGraphSpec, chi: int, cutoff: float,
                  normalize_tensors: bool, bp_maxiter: int,
                  bp_tolerance: float | None, bp_damping: float,
                  final_update: bool):
         super().__init__()
-        self.spec = circuit.spec
-        self.chi, self.cutoff = chi, cutoff
-        self.normalize_tensors = normalize_tensors
+        self.spec, self.chi = spec, chi
+        self.cutoff, self.normalize_tensors = cutoff, normalize_tensors
         self.bp_kwargs = dict(maxiter=bp_maxiter, tolerance=bp_tolerance,
                               damping=bp_damping)
         self.final_update = final_update
-        tables = graph_tables(self.spec, "cpu")
+        tables = graph_tables(spec, "cpu")
         self.register_buffer("nbr", tables.nbr)
         self.register_buffer("nbr_slot", tables.nbr_slot)
         self.register_buffer("mask", tables.mask)
-        # the plan names buffers, so it stays valid after .to(device)
+        # the plan names buffers, so it stays valid after .to(device):
+        # ("one", key) or ("group", group, needs_refresh, key); per colour
+        # group its buckets' (slot_u, slot_v, u, v) and their sizes
         self._plan = []
-        for i, seg in enumerate(circuit.segments):
-            if isinstance(seg, _OneSiteSegment):
-                self._buffer(f"seg{i}_gate", seg.gate)
-                self._plan.append(("one", f"seg{i}_gate"))
-                continue
-            buckets = []
-            for j, b in enumerate(seg.buckets):
-                for side, idx in (("u", b.u_idx), ("v", b.v_idx)):
-                    self._buffer(f"seg{i}_b{j}_{side}",
-                                 np.asarray(idx, dtype=np.int64))
-                buckets.append((b.slot_u, b.slot_v, f"seg{i}_b{j}_u",
-                                f"seg{i}_b{j}_v"))
-            if seg.gates_per_bucket is None:
-                self._buffer(f"seg{i}_gate", seg.gate)
-                gate_names = [f"seg{i}_gate"]
-            else:
-                gate_names = []
-                for j, gb in enumerate(seg.gates_per_bucket):
-                    self._buffer(f"seg{i}_b{j}_gate", gb)
-                    gate_names.append(f"seg{i}_b{j}_gate")
-            self._plan.append(("two", seg.needs_refresh, buckets, gate_names))
+        self._groups = []
 
     def _buffer(self, name: str, array: np.ndarray) -> None:
         self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(array)))
 
-    def forward(self, state: BatchedState):
-        state, errs = self._run(state, 1)
+    def _add_group(self, prefix: str, buckets, needs_refresh: bool,
+                   key: str) -> None:
+        plan = []
+        for j, b in enumerate(buckets):
+            names = tuple(f"{prefix}_b{j}_{k}" for k in "uv")
+            for name, idx in zip(names, (b.u_idx, b.v_idx)):
+                self._buffer(name, np.asarray(idx, dtype=np.int64))
+            plan.append((b.slot_u, b.slot_v) + names)
+        self._plan.append(("group", len(self._groups), needs_refresh, key))
+        self._groups.append((tuple(plan),
+                             tuple(len(b.u_idx) for b in buckets)))
+
+    def forward(self, state: BatchedState, *params):
+        """One realization: ``(state, *params) -> (state, errors)``; the
+        compiled layer takes no parameters, a field layer its angles."""
+        args = self._arguments(params, (None,) * len(params), 1,
+                               state.tensors.device)
+        state, errs = self._run(state, 1, args)
         return state, errs[0]
 
     def ensemble(self, estate: BatchedState, params=(), axes=()):
-        """E stacked states ``estate`` ([E, V, ...]) through the layer in
-        one batched program (the members folded into the vertex axis, BP
-        stopping per member).  Returns (estate, errors [E, n])."""
-        if params:
-            raise TypeError("a compiled layer takes no arguments besides "
-                            "the state")
+        """E stacked states ``estate`` ([E, V, ...]) in one batched program
+        (the members folded into the vertex axis, BP stopping per member);
+        ``axes[i]`` is 0 when ``params[i]`` has a leading ensemble axis and
+        None when it is shared.  Returns (estate, errors [E, n])."""
         E = estate.tensors.shape[0]
-        state, errs = self._run(fold_members(estate), E)
+        args = self._arguments(params, axes, E, estate.tensors.device)
+        state, errs = self._run(fold_members(estate), E, args)
         return unfold_members(state, E), errs
 
-    def _run(self, state: BatchedState, E: int):
+    def _run(self, state: BatchedState, E: int, args):
         with span("layer"):
-            return self._layer(state, E)
+            return self._layer(state, E, args)
 
-    def _layer(self, state: BatchedState, E: int):
-        V = self.spec.num_vertices
+    def _layer(self, state: BatchedState, E: int, args):
+        V, d = self.spec.num_vertices, state.tensors.shape[-1]
         tables = member_tables(GraphTables(self.nbr, self.nbr_slot, self.mask),
                                E, V)
 
+        # BP and the update are looked up on the engine at each call, so a
+        # wrapper installed there sees every call
         def refresh(st):
-            return bp_update(self.spec, st, tables=tables, members=E,
-                             **self.bp_kwargs)
+            return engine.bp_update(self.spec, st, tables=tables, members=E,
+                                    **self.bp_kwargs)
 
         errs = []
         for step in self._plan:
-            if step[0] == "one":  # [V, d, d], one copy per member
-                state = apply_one_site(state, _per_member(
-                    getattr(self, step[1]), E))
+            if step[0] == "one":  # [E·V, d, d]
+                state = apply_one_site(state,
+                                       self._one_site_gate(step[1], E, args))
                 continue
-            _, needs_refresh, buckets, gate_names = step
+            _, gi, needs_refresh, key = step
             if needs_refresh:
                 state = refresh(state)
-            bks = [SlotPairBucket(su, sv,
-                                  member_indices(getattr(self, un), E, V),
-                                  member_indices(getattr(self, vn), E, V))
-                   for (su, sv, un, vn) in buckets]
-            gates = [getattr(self, gn) for gn in gate_names]
-            if gates[0].ndim == 4:  # one [d, d, d, d] gate for every edge
-                groups = [(bks, gates[0])]
-            else:  # per-edge gates [B, ...], one copy per member
-                groups = [((b,), _per_member(gate, E))
-                          for b, gate in zip(bks, gates)]
-            for group, gate in groups:
-                state, err = apply_color_group(
-                    state, group, gate, self.chi, self.cutoff,
-                    self.normalize_tensors,
-                )
-                # errors come bucket by bucket, each member-major
-                sizes = [len(b.u_idx) for b in group]
-                errs += [e.reshape(E, -1) for e in err.split(sizes)]
+            plan, sizes = self._groups[gi]
+            buckets = [SlotPairBucket(su, sv,
+                                      member_indices(getattr(self, un), E, V),
+                                      member_indices(getattr(self, vn), E, V))
+                       for su, sv, un, vn in plan]
+            gate = self._group_gate(key, sizes, E, d, args)
+            state, err = engine.apply_color_group(
+                state, buckets, gate.to(state.tensors.dtype), self.chi,
+                self.cutoff, self.normalize_tensors)
+            errs += _group_errors(err, E, sizes)
         if self.final_update:
             state = refresh(state)
         if not errs:
             return state, torch.zeros((E, 0), device=state.tensors.device)
         return state, torch.cat(errs, dim=1)
+
+
+class TrotterLayer(ColourGroupLayer):
+    """One compiled Trotter layer: ``state -> (state, truncation_errors)``,
+    a colour-group step per matching of the circuit, its per-edge gates
+    (where they differ) one [ΣB, d, d, d, d] buffer in bucket order."""
+
+    def __init__(self, circuit: BatchedCircuit, chi: int, cutoff: float,
+                 normalize_tensors: bool, bp_maxiter: int,
+                 bp_tolerance: float | None, bp_damping: float,
+                 final_update: bool):
+        super().__init__(circuit.spec, chi, cutoff, normalize_tensors,
+                         bp_maxiter, bp_tolerance, bp_damping, final_update)
+        for i, seg in enumerate(circuit.segments):
+            key = f"seg{i}_gate"
+            if isinstance(seg, _OneSiteSegment):
+                self._buffer(key, seg.gate)
+                self._plan.append(("one", key))
+                continue
+            self._buffer(key, seg.gate if seg.gates_per_bucket is None
+                         else np.concatenate(seg.gates_per_bucket))
+            self._add_group(f"seg{i}", seg.buckets, seg.needs_refresh, key)
+
+    def _arguments(self, params, axes, E, device):
+        if params:
+            raise TypeError("a compiled layer takes no arguments besides "
+                            "the state")
+        return ()
+
+    def _one_site_gate(self, key, E, args):
+        gate = getattr(self, key)  # [V, d, d], one copy per member
+        return gate if E == 1 else gate.repeat(E, 1, 1)
+
+    def _group_gate(self, key, sizes, E, d, args):
+        gate = getattr(self, key)
+        if gate.ndim == 4:  # one [d, d, d, d] gate for every edge
+            return gate
+        return _group_rows(gate.expand((E,) + tuple(gate.shape)), sizes)
 
 
 def make_layer_fn(

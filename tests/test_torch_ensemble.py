@@ -200,7 +200,8 @@ def test_torch_ensemble_per_member_bp_stopping_matches_jax(monkeypatch):
     bond = scale * rng.uniform(0.5, 1.0, size=(E, Eb))
 
     refreshes = []  # per BP refresh, the per-member distance of each sweep
-    measure, refresh = t_engine._message_distance, te.bp_update
+    # the layer looks BP up on the engine at each refresh
+    measure, refresh = t_engine._message_distance, t_engine.bp_update
 
     def recorded_distance(a, b, mask, members=1):
         out = measure(a, b, mask, members)
@@ -212,7 +213,7 @@ def test_torch_ensemble_per_member_bp_stopping_matches_jax(monkeypatch):
         return refresh(*args, **kwargs)
 
     monkeypatch.setattr(t_engine, "_message_distance", recorded_distance)
-    monkeypatch.setattr(te, "bp_update", recorded_refresh)
+    monkeypatch.setattr(t_engine, "bp_update", recorded_refresh)
     est_t, est_j = te.stack_states([s_t] * E), jp.stack_states([s_j] * E)
     for _ in range(3):  # the first layer's refreshes are exact at once
         est_t, err_t = te.ensemble_fn(layer_t)(

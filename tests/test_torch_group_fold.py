@@ -1,19 +1,23 @@
-"""PyTorch port, one simple update per colour group in the field layer
-(``parallel/ensemble.py`` ``FieldLayer``): every slot-pair bucket of a
-colour group goes into one ``apply_color_group`` call, each edge with its
-own gate, stacked in bucket order (``engine._bucket_gates``).
+"""PyTorch port, one simple update per colour group in both layers
+(``parallel/trotter.py`` ``ColourGroupLayer``, the body of ``TrotterLayer``
+and ``ensemble.FieldLayer``): every slot-pair bucket of a colour group goes
+into one ``apply_color_group`` call, each edge with its own gate, stacked
+in bucket order (``engine._bucket_gates``).
 
 The fold changes only how the update's library calls are batched: the
 edges of a colour group share no vertex, and every factorization works
-matrix by matrix.  So in complex128 on the CPU the folded layer is held to
-the per-bucket updates (``TNQS_FUSE_BUCKETS=0``, and the per-bucket loop
-written out here) with the truncation errors in the same ``[E, n]`` column
-order; ``_group_core`` on a stacked per-edge gate is held to one call per
-bucket, and two planted faults in the slicing must fail that check.  On
-the card (``card`` tests) one Eagle χ=64 step makes one K2 launch at n=256
-per colour group, every update replayed from its group's graphs.
+matrix by matrix.  So in complex128 on the CPU the folded field layer is
+held to per-bucket updates (the JAX package's field layer, which updates
+one bucket at a time, and the per-bucket loop written out here), and the
+compiled layer with per-edge gates to its own per-bucket loop, with the
+truncation errors in the same ``[E, n]`` column order; ``_group_core`` on
+a stacked per-edge gate is held to one call per bucket, and two planted
+faults in the slicing must fail that check.  On the card (``card`` tests)
+one Eagle χ=64 step makes one K2 launch at n=256 per colour group, every
+update replayed from its group's graphs.
 
-No JAX here: the card's test runs in this file too."""
+JAX is imported only inside the test that runs it: the card's test runs
+in this file too, where JAX is not installed."""
 
 import os
 import subprocess
@@ -40,13 +44,13 @@ torch.set_num_threads(1)
 _Z = tt.op_matrix("Z", 2)
 _HERE = Path(__file__).resolve().parent
 
-# lattice -> (graph function, χ, members, steps): the 5×5 grid with
-# per-member disorder folded three times, and Eagle's 127-qubit heavy hex;
-# χ and the steps are chosen so that the last step truncates (errors up to
-# 1.5e-3 and 1.4e-4)
+# lattice -> (graph of a lattices module, χ, members, steps): the 5×5
+# grid with per-member disorder folded three times, and Eagle's 127-qubit
+# heavy hex; χ and the steps are chosen so that the last step truncates
+# (errors up to 1.5e-3 and 1.4e-4)
 _LATTICES = {
-    "grid5x5_disorder_e3": (lambda: tt.named_grid((5, 5)), 2, 3, 3),
-    "heavyhex127_chi4": (tt.ibm_eagle_lattice, 4, 1, 5),
+    "grid5x5_disorder_e3": (lambda lat: lat.named_grid((5, 5)), 2, 3, 3),
+    "heavyhex127_chi4": (lambda lat: lat.ibm_eagle_lattice(), 4, 1, 5),
 }
 
 
@@ -61,7 +65,7 @@ def _on_cpu():
 def _field(lattice, dtype=torch.complex128, device="cpu"):
     """(spec, one member's |0…0⟩, layer, members, steps) of ``lattice``."""
     make_graph, chi, members, steps = _LATTICES[lattice]
-    g = make_graph()
+    g = make_graph(tt)
     spec, state = par.batched_product_state(g, chi=chi, dtype=dtype,
                                             device=device)
     _, layer = par.make_field_layer_fn(
@@ -121,6 +125,39 @@ def _bucket_loop(layer, estate, site, bond):
     return state, torch.cat(errs, dim=1)
 
 
+def _jax_bucket_layer(lattice, seed=17):
+    """(⟨Z⟩ [E, V], errors [E, n] of the last step) of the JAX package's
+    field layer, vmapped over the members, on the steps of :func:`_run`
+    from the port's |0…0⟩: it updates one slot-pair bucket at a time."""
+    import jax.numpy as jnp
+    from tensornetworkquantumsimulator_tpu import parallel as jp
+    from tensornetworkquantumsimulator_tpu.utils import lattices as j_lat
+
+    spec, state, layer, members, steps = _field(lattice)
+    make_graph, chi = _LATTICES[lattice][:2]
+    g = make_graph(j_lat)
+    spec_j = jp.compile_graph(g)
+
+    def buckets(sp):
+        return [[(b.slot_u, b.slot_v, tuple(b.u_idx), tuple(b.v_idx))
+                 for b in group] for group in sp.color_groups]
+
+    assert buckets(spec_j) == buckets(spec)  # the same colour groups
+    _, layer_j = jp.make_field_layer_fn(
+        g, chi, site_pauli=("X",), cutoff=layer.cutoff, spec=spec_j,
+        **{f"bp_{k}": v for k, v in layer.bp_kwargs.items()})
+    estate = jp.stack_states([jp.BatchedState(
+        jnp.asarray(state.tensors.numpy()),
+        jnp.asarray(state.messages.numpy()))] * members)
+    for k in range(steps):
+        site, bond = _disorder(spec, members, seed + k)
+        estate, err = jp.ensemble_fn(layer_j)(
+            estate, jnp.asarray(site.numpy()), jnp.asarray(bond.numpy()))
+    z = jp.make_ensemble_expectation_fn(spec_j, _Z)(estate)
+    return (torch.as_tensor(np.real(np.array(z))),
+            torch.as_tensor(np.array(err)))
+
+
 def _run(lattice, step=_layer_step, seed=17):
     """(⟨Z⟩ [E, V], errors [E, n] of the last step) after the lattice's
     disorder steps from |0…0⟩."""
@@ -137,8 +174,10 @@ def _run(lattice, step=_layer_step, seed=17):
 def test_folded_layer_equals_per_bucket_updates(monkeypatch, lattice,
                                                 reference):
     """Disorder steps in complex128: ⟨Z⟩ of the folded layer within
-    1e-6 of per-bucket updates (``TNQS_FUSE_BUCKETS=0``, or the per-bucket
-    loop), the truncation errors equal in the same ``[E, n]`` order."""
+    1e-6 of per-bucket updates, the truncation errors equal in the same
+    ``[E, n]`` order.  ``fuse_off``: the JAX package's field layer under
+    ``TNQS_FUSE_BUCKETS=0`` (a knob the port does not read), one update
+    per bucket; ``bucket_loop``: the port's per-bucket loop."""
     spec = _field(lattice)[0]
     members = _LATTICES[lattice][2]
     # some colour group has several buckets, so the fold has work to do
@@ -146,7 +185,7 @@ def test_folded_layer_equals_per_bucket_updates(monkeypatch, lattice,
     z_fold, e_fold = _run(lattice)
     if reference == "fuse_off":
         monkeypatch.setenv("TNQS_FUSE_BUCKETS", "0")
-        z_ref, e_ref = _run(lattice)
+        z_ref, e_ref = _jax_bucket_layer(lattice)
     else:
         z_ref, e_ref = _run(lattice, step=_bucket_loop)
     assert e_fold.shape == e_ref.shape == (members, len(spec.edges))
@@ -154,6 +193,112 @@ def test_folded_layer_equals_per_bucket_updates(monkeypatch, lattice,
     np.testing.assert_allclose(e_fold.numpy(), e_ref.numpy(), rtol=1e-6,
                                atol=1e-14)
     assert float(e_ref.max()) > 1e-5  # the last step truncates
+
+
+# ---------------------------------------------------------------------------
+# the compiled layer with per-edge gates
+# ---------------------------------------------------------------------------
+
+# lattice -> graph of the port's lattices; members start in these states
+_COMPILED = {
+    "grid3x3": lambda: tt.named_grid((3, 3)),
+    "heavyhex2x2": lambda: tt.heavy_hexagonal_lattice(2, 2),
+}
+_STARTS = ("↑", "X+", "y-")
+
+
+def _compiled(lattice, chi=3):
+    """(circuit, layer, stacked states [E, V, ...]) of a kicked-Ising layer
+    whose every edge has its own Rzz angle, one member per start state."""
+    g = _COMPILED[lattice]()
+    rng = np.random.default_rng(29)
+    gates = [("Rx", [v], 0.6) for v in g.vertices()]
+    for group in tt.edge_color(g):
+        gates += [("Rzz", pair, float(rng.uniform(0.3, 1.2)))
+                  for pair in group]
+    states = [par.batched_product_state(g, chi=chi, dtype=torch.complex128,
+                                        state_fn=lambda v, s=s: s,
+                                        device="cpu")
+              for s in _STARTS]
+    circuit = par.BatchedCircuit(gates, g, spec=states[0][0])
+    layer = par.make_layer_fn(circuit, chi, cutoff=1e-12, bp_maxiter=40,
+                              bp_tolerance=1e-9, device="cpu")
+    return circuit, layer, par.stack_states([st for _, st in states])
+
+
+def _compiled_bucket_loop(circuit, layer, estate):
+    """The compiled layer written out one slot-pair bucket at a time: one
+    ``apply_color_group`` per bucket with its own edges' gates, one copy
+    per member, the errors ``[E, B]`` per bucket concatenated."""
+    spec, E = circuit.spec, estate.tensors.shape[0]
+    V = spec.num_vertices
+    tables = engine.member_tables(engine.GraphTables(
+        layer.nbr, layer.nbr_slot, layer.mask), E, V)
+
+    def refresh(st):
+        return engine.bp_update(spec, st, tables=tables, members=E,
+                                **layer.bp_kwargs)
+
+    state, errs = engine.fold_members(estate), []
+    for seg in circuit.segments:
+        if not hasattr(seg, "buckets"):  # fused one-site gates [V, d, d]
+            state = engine.apply_one_site(
+                state, torch.as_tensor(seg.gate).repeat(E, 1, 1))
+            continue
+        if seg.needs_refresh:
+            state = refresh(state)
+        for b, gate in zip(seg.buckets, seg.gates_per_bucket):
+            bucket = SlotPairBucket(
+                b.slot_u, b.slot_v,
+                engine.member_indices(torch.as_tensor(b.u_idx), E, V),
+                engine.member_indices(torch.as_tensor(b.v_idx), E, V))
+            state, err = engine.apply_color_group(
+                state, (bucket,), torch.as_tensor(gate).repeat(E, 1, 1, 1, 1),
+                layer.chi, layer.cutoff, layer.normalize_tensors)
+            errs.append(err.reshape(E, -1))
+    state = engine.unfold_members(refresh(state), E)
+    return state, torch.cat(errs, dim=1)
+
+
+@pytest.mark.parametrize("lattice", sorted(_COMPILED))
+def test_compiled_layer_with_per_edge_gates_equals_per_bucket_updates(
+        lattice):
+    """Two compiled layers, every edge with its own gate, over three
+    members in complex128: ⟨Z⟩ of the folded layer (one update per colour
+    group) within 1e-6 of the per-bucket loop, the truncation errors equal
+    in the same ``[E, n]`` order."""
+    circuit, layer, estate = _compiled(lattice)
+    groups = [seg for seg in circuit.segments if hasattr(seg, "buckets")]
+    assert all(seg.gates_per_bucket is not None for seg in groups)
+    assert any(len(seg.buckets) > 1 for seg in groups)
+    fold, ref = estate, estate
+    for _ in range(2):
+        fold, e_fold = par.ensemble_fn(layer)(fold)
+        ref, e_ref = _compiled_bucket_loop(circuit, layer, ref)
+    z_fold, z_ref = (par.local_expectations(
+        circuit.spec, engine.fold_members(st), _Z).real for st in (fold, ref))
+    assert e_fold.shape == e_ref.shape == (len(_STARTS),
+                                           len(circuit.spec.edges))
+    assert float((z_fold - z_ref).abs().max()) <= 1e-6
+    np.testing.assert_allclose(e_fold.numpy(), e_ref.numpy(), rtol=1e-6,
+                               atol=1e-14)
+    assert float(e_ref.max()) > 1e-5  # the layers truncate
+
+
+@pytest.mark.parametrize("lattice", sorted(_COMPILED))
+def test_compiled_layer_makes_one_update_call_per_colour_group(lattice):
+    """Under ``tracing()`` one compiled layer with per-edge gates opens one
+    ``su.group`` span per colour group, each over several buckets on
+    average."""
+    circuit, layer, estate = _compiled(lattice)
+    state = par.unstack_states(estate)[0]
+    with profiling.tracing() as handle:
+        layer(state)
+        data = handle.collect()
+    calls = sum(s.name == "su.group" for s in data["spans"])
+    assert calls == len(tt.edge_color(_COMPILED[lattice]()))
+    assert calls == sum(hasattr(seg, "buckets") for seg in circuit.segments)
+    assert data["counters"]["su.group.buckets"] / calls > 1
 
 
 # ---------------------------------------------------------------------------

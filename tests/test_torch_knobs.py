@@ -39,6 +39,11 @@ _VARIANTS = {
 
 @pytest.mark.parametrize("variant", sorted(_VARIANTS))
 def test_knob_variant_matches_jax_complex128(variant, monkeypatch):
+    """The kicked heavy-hex layer under one knob variant in both packages.
+    ``per_bucket`` (``TNQS_FUSE_BUCKETS=0``) is read by the JAX package
+    only: it runs one update per slot-pair bucket, the port its one
+    stacked update per colour group, so this case holds the port's stacking
+    to a per-bucket reference."""
     for k in _KNOBS:
         monkeypatch.delenv(k, raising=False)
     for k, v in _VARIANTS[variant].items():

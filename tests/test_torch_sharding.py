@@ -142,9 +142,10 @@ def test_sharded_bp_matches_unsharded(bp_case, S):
 @pytest.mark.parametrize("fuse", ["1", "0"])
 def test_apply_color_group_masked_matches_jax(monkeypatch, fuse):
     """The traced-table group apply: padded canonical buckets (pad lanes
-    gather vertex 0 and write nothing) against JAX's function, with the
-    buckets' updates stacked into one and, ``TNQS_FUSE_BUCKETS=0``, one
-    per bucket."""
+    gather vertex 0 and write nothing) against JAX's function.  The port
+    always stacks the buckets' updates into one; ``TNQS_FUSE_BUCKETS`` is
+    read by the JAX package only, which with ``0`` updates one bucket at a
+    time, so ``fuse="0"`` holds the stacked update to a per-bucket one."""
     monkeypatch.setenv("TNQS_FUSE_BUCKETS", fuse)
     jg, tg = sc.lattices("grid4x3")
     jspec = jp.compile_graph(jg)

@@ -236,18 +236,33 @@ def test_layer_matches_unsharded(fresh, S_):
                                np.sort(last), atol=1e-10)
 
 
-def test_layer_unfused_buckets_match_fused(fresh, monkeypatch):
-    """``TNQS_FUSE_BUCKETS=0`` (one update per bucket in each shard) gives
-    the layer of the stacked update: ⟨Z⟩ and the errors within 1e-10."""
+def test_layer_unfused_buckets_match_fused(fresh):
+    """The sharded layer (each shard's buckets of a colour group in one
+    stacked update) against the port's unsharded layer written out one
+    slot-pair bucket at a time (one ``apply_color_group`` per bucket):
+    ⟨Z⟩ and the errors within 1e-10."""
     _, tss, t, m = fresh
-    outs = []
-    for fuse in ("1", "0"):
-        monkeypatch.setenv("TNQS_FUSE_BUCKETS", fuse)
-        mesh, out, errs = _port_layer(tss, t, m, S, bp_tolerance=1e-12)
-        outs.append((sc.to_np(t_sl.make_sharded_site_expectations(
-            tss, mesh, Z)(out)), sc.to_np(errs)))
-    np.testing.assert_allclose(outs[1][0], outs[0][0], atol=1e-10)
-    np.testing.assert_allclose(outs[1][1], outs[0][1], atol=1e-10)
+    spec = tss.spec
+    gate2, gate1 = sc.gates()
+    ref = tp.apply_one_site(tp.state_from_numpy(t, m, device="cpu"),
+                            torch.as_tensor(gate1))
+    ref_errs = []
+    for grp in spec.color_groups:
+        ref = tp.bp_update(spec, ref, tolerance=1e-12)
+        for b in grp:
+            ref, e = tp.apply_color_group(ref, (b,), torch.as_tensor(gate2),
+                                          CHI, 1e-12)
+            ref_errs.append(e)
+    ref = tp.bp_update(spec, ref, tolerance=1e-12)
+    assert len(ref_errs) > len(spec.color_groups)  # some group has buckets
+    mesh, out, errs = _port_layer(tss, t, m, S, bp_tolerance=1e-12)
+    np.testing.assert_allclose(
+        sc.to_np(t_sl.make_sharded_site_expectations(tss, mesh, Z)(out)),
+        tp.local_expectations(spec, ref, Z).numpy(), atol=1e-10)
+    # the sharded errors hold every edge's error once (padding reads 0)
+    last = torch.cat(ref_errs).numpy()
+    np.testing.assert_allclose(np.sort(sc.to_np(errs))[-len(last):],
+                               np.sort(last), atol=1e-10)
 
 
 @pytest.fixture(scope="module")
