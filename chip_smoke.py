@@ -44,7 +44,12 @@ Phases, each printing its checks and seconds:
    dense-statevector oracle (``tests/dense_oracle.py``) to 1e-4; then the
    ``[su_graphs]`` line: the field layer at the benchmark quench's shape,
    its update replayed as CUDA graphs against the eager update (host ms
-   per step, the replay share after two warm-up steps, max |Δ⟨Z⟩|);
+   per step, the replay share after two warm-up steps, max |Δ⟨Z⟩|); and
+   the ``[bp_graphs]`` line: the same layer with its BP sweeps replayed as
+   CUDA graphs against eager sweeps (BP's host ms per step, the sweeps'
+   replay share after two warm-up steps, sweeps per step, max |Δ⟨Z⟩|),
+   alone and with 4 members folded (each member's stop sweeps and
+   ``bp.member_sweeps_active`` equal too);
 6. ``rolled``: the bench's headline ``chi10_rolled`` (bench.py:219-262),
    the parametric field layer on the 5x5 grid at χ=10 with 64 rolled angle
    sets, 10 layers; K1 and K2 must launch, ⟨Z⟩ kernels on vs off to 1e-4,
@@ -247,17 +252,17 @@ generic_bmps, examples, examples_fast_stack, sharded_chi32, sharded_2d,
 sharded_heavyhex) runs with
 every launch
 counter set to 0 just before it and read just after, and logs what the
-update's CUDA graphs did over it (keys captured and refused, updates
-replayed and eager; a refused capture fails the path) and the device's
-memory peak.  The line before the last is ``{"kernels": [...]}`` (with launches per path
+update's and BP's CUDA graphs did over it (keys captured and refused,
+updates or BP refreshes replayed and eager; a refused capture fails the
+path) and the device's memory peak.  The line before the last is ``{"kernels": [...]}`` (with launches per path
 and per layer, ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``library_ms`` and ``library_device_ms`` per kernel); the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 when no CUDA device is visible.
 
-Four diagnostic modes print one JSON line instead (``--su-graphs`` the
-``[su_graphs]`` line alone):
+Five diagnostic modes print one JSON line instead (``--su-graphs`` the
+``[su_graphs]`` line alone, ``--bp-graphs`` the ``[bp_graphs]`` line):
 ``--time-bmps ROOT`` times the boundary-MPS calls of ``measure`` with the
 package of the tree at ROOT (run it on two trees, alternating, to compare
 them on one card), ``--fast-stack CHI`` prints how far each knob stack
@@ -864,15 +869,16 @@ def run_layers(tt, dev, name, n, env):
     return z
 
 
-def graph_calls() -> dict:
-    """What the update's CUDA graphs (``su_graphs``) did since their cache
-    was last emptied: keys, keys captured and keys whose capture was
-    refused (each also warns), and the updates replayed and run eagerly
-    through them (a captured key's first call is eager; updates whose route
-    takes no graphs are not counted)."""
+def graph_calls(graphs=None) -> dict:
+    """What the update's CUDA graphs (``su_graphs``, or the module
+    ``graphs``: ``bp_graphs``) did since their cache was last emptied:
+    keys, keys captured and keys whose capture was refused (each also
+    warns), and the calls (updates, or BP refreshes) replayed and run
+    eagerly through them (a captured key's first call is eager; calls whose
+    route takes no graphs are not counted)."""
     from tensornetworkquantumsimulator_torch.parallel import su_graphs
 
-    entries = list(su_graphs._cache.values())
+    entries = list((graphs or su_graphs)._cache.values())
     captured = [e for e in entries if e.stretches]
     return {"keys": len(entries), "captured": len(captured),
             "refused": sum(e.failed for e in entries),
@@ -886,23 +892,27 @@ def counted(counters, name, required, run):
     return (launches just after, what ``run`` returned), and fail if a
     required kernel never launched.  Logs the update graphs' calls over the
     path (:func:`graph_calls`, their cache emptied first) and the device's
-    memory peak, allocated and reserved (the graphs' pool included)."""
+    memory peak, allocated and reserved (the graphs' pool included); the
+    same for BP's graphs."""
+    from tensornetworkquantumsimulator_torch.parallel import bp_graphs
     from tensornetworkquantumsimulator_torch.parallel import su_graphs
 
     for c in counters.values():
         c.reset()
     su_graphs._cache.clear()
+    bp_graphs._cache.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = run()
     launches = {k: c.count for k, c in counters.items()}
     torch.cuda.synchronize()
-    calls = graph_calls()
-    log(name, f"update graphs {calls}; device memory peak "
-              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+    calls, bp_calls = graph_calls(), graph_calls(bp_graphs)
+    log(name, f"update graphs {calls}; BP graphs {bp_calls}; device memory "
+              f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
               f"allocated, {torch.cuda.max_memory_reserved() / 2**20:.1f} "
               f"MiB reserved")
     assert calls["refused"] == 0, f"{name}: update graphs refused: {calls}"
+    assert bp_calls["refused"] == 0, f"{name}: BP graphs refused: {bp_calls}"
     for k in required:
         assert launches[k] > 0, f"{name}: kernel {k} was never launched"
     return launches, out
@@ -1105,6 +1115,115 @@ def su_graphs_line(tt, dev, card) -> dict:
     return out
 
 
+def bp_graphs_line(tt, dev, card) -> dict:
+    """The field layer at the benchmark quench's shape (as
+    :func:`su_graphs_line`), 22 steps from |0…0⟩ with ⟨Z⟩ read to the host
+    after each, its BP sweeps replayed as CUDA graphs (``bp_graphs``)
+    against eager sweeps (its capture check patched to refuse; the update
+    replays its own graphs in both): BP's host ms per step (the
+    ``bp.update`` spans) and the layer's host ms per call (medians of steps
+    3-22), the sweeps' replay share over those steps (1 − ``bp.graph.eager``
+    / ``bp.sweeps``), sweeps per step, and max |Δ⟨Z⟩| over all 22 steps.
+    Then the same for 4 members folded (``ensemble_fn``, a field of its own
+    each), where each member stops on its own sweep: its stop sweeps,
+    ``bp.member_sweeps_active`` and ⟨Z⟩ equal to the eager run's."""
+    from tensornetworkquantumsimulator_torch.parallel import bp_graphs, engine
+    from tensornetworkquantumsimulator_torch.utils import profiling
+
+    g = tt.named_grid((5, 5))
+    spec, state0 = tt.batched_product_state(g, chi=10, dtype=torch.complex64,
+                                            device=dev)
+    _, layer = tt.parallel.make_field_layer_fn(
+        g, 10, site_pauli=("X", "Z"), cutoff=1e-10, bp_maxiter=25,
+        bp_tolerance=1e-5, spec=spec, device=dev)
+    V, Eb = spec.num_vertices, len(spec.edges)
+    z_op = tt.op_matrix("Z", 2)
+
+    ens = tt.parallel.ensemble
+    names = ("bp.sweeps", "bp.graph.eager", "bp.member_sweeps_active")
+
+    def run(members):
+        f = torch.linspace(1.0, 1.6, members, dtype=torch.float64,
+                           device=dev)
+        site = torch.tensor([[0.5] * V, [0.4] * V], dtype=torch.float64,
+                            device=dev) * f[:, None, None]
+        bond = torch.full((members, Eb), 0.25, dtype=torch.float64,
+                          device=dev)
+        if members == 1:
+            state, step_fn = state0, layer
+            site, bond = site[0], bond[0]
+
+            def z_fn(st):
+                return tt.local_expectations(spec, st, z_op).real
+        else:
+            state = ens.stack_states([state0] * members)
+            step_fn = ens.ensemble_fn(layer)
+            z_fn = ens.make_ensemble_expectation_fn(spec, z_op, True)
+        zs, host, bp_host = [], [], []
+        # E = 1 reads no distances: a read a sweep would cost host time
+        with (bp_decisions(engine) if members > 1
+              else contextlib.nullcontext([])) as refreshes:
+            with profiling.tracing() as handle:
+                for step in range(22):
+                    if step == 2:
+                        before = dict(handle.collect()["counters"])
+                    seen = len(handle.collect()["spans"])
+                    t0 = time.perf_counter()
+                    state, _ = step_fn(state, site, bond)
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    zs.append(z_fn(state).cpu())
+                    data = handle.collect()
+                    bp_host.append(sum(s.end_ns - s.start_ns
+                                       for s in data["spans"][seen:]
+                                       if s.name == "bp.update") / 1e6)
+                after = data["counters"]
+        moved = {k: after.get(k, 0) - before.get(k, 0) for k in names}
+        share = (1 - moved["bp.graph.eager"] / moved["bp.sweeps"]
+                 if moved["bp.sweeps"] else 0.0)
+        stops = [tuple(stop_sweep(sw, tol, e) for e in range(members))
+                 for tol, sw in refreshes]
+        return (torch.stack(zs), float(np.median(bp_host[2:])),
+                float(np.median(host[2:])), share, moved["bp.sweeps"] / 20,
+                stops, moved["bp.member_sweeps_active"])
+
+    out = {"card": card}
+    with knobs(FAST_STACK):
+        for members in (1, 4):
+            bp_graphs._cache.clear()
+            z_g, bp_g, host_g, share_g, sweeps_g, stops_g, act_g = run(
+                members)
+            with patched(bp_graphs, "_capturable", lambda device: False):
+                z_e, bp_e, host_e, share_e, sweeps_e, stops_e, act_e = run(
+                    members)
+            dz = float((z_g - z_e).abs().max())
+            row = {"bp_host_ms": [bp_g, bp_e],
+                   "layer_host_ms": [host_g, host_e],
+                   "replay_share": [share_g, share_e],
+                   "sweeps_per_step": [sweeps_g, sweeps_e],
+                   "max_abs_dz": dz}
+            if members == 1:
+                out.update(row)
+            else:
+                row["member_sweeps_active"] = [act_g, act_e]
+                out[f"ensemble{members}"] = row
+            log("bp_graphs", f"5x5 chi=10 c64 field layer, E={members}, BP "
+                             f"graphs / eager: BP host ms per step "
+                             f"{bp_g:.2f} / {bp_e:.2f}, layer host ms per "
+                             f"call {host_g:.2f} / {host_e:.2f}; sweeps' "
+                             f"replay share after 2 warm-up steps "
+                             f"{share_g:.3f} / {share_e:.3f}; sweeps per "
+                             f"step {sweeps_g:g} / {sweeps_e:g}; member "
+                             f"sweeps active {act_g} / {act_e}; max |dZ| "
+                             f"over 22 steps {dz:.2e} ({card})")
+            assert share_g == 1.0 and share_e == 0.0, (share_g, share_e)
+            assert sweeps_g == sweeps_e, (sweeps_g, sweeps_e)
+            assert stops_g == stops_e, f"bp_graphs E={members}: stops differ"
+            assert act_g == act_e, (act_g, act_e)
+            assert dz <= 1e-6, (f"bp_graphs E={members}: graphs vs eager "
+                                f"max |dZ| {dz:.3e} > 1e-6")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 6-10: the rolled, bond, ensemble, noisy and microbenchmark paths
 # ---------------------------------------------------------------------------
@@ -1194,34 +1313,47 @@ def member_angles(site, bond, layer, members=None):
     return site[j] * f[:, None, None], bond[j] * f[:, None]
 
 
+class _Recorded:
+    """A BP stretch runner (``engine._Eager`` or a refresh's replays in
+    ``bp_graphs``) that passes every call on and appends each sweep's
+    [members] distances, the last output of stretch ``"n2"``
+    (``engine._sweep_end``), to ``sweeps``, read on the host before any
+    stretch replays again."""
+
+    def __init__(self, run, sweeps):
+        self.run, self.sweeps = run, sweeps
+
+    def fixed(self, name, value):
+        return self.run.fixed(name, value)
+
+    def stretch(self, name, fn):
+        outs = self.run.stretch(name, fn)
+        if name == "n2":
+            self.sweeps.append(outs[-1].detach().cpu().numpy())
+        return outs
+
+
 @contextlib.contextmanager
 def bp_decisions(engine):
     """Record every flooding-BP refresh the batched engine runs inside
     (``engine._fixed_point``): yields a list that gains, per refresh, (its
-    tolerance, one [members] array of message distances per sweep)."""
-    refreshes, open_ = [], []
-    fixed, measure = engine._fixed_point, engine._message_distance
+    tolerance, one [members] array of message distances per sweep).  The
+    sweeps run as they would unrecorded, replayed as CUDA graphs where
+    ``bp_graphs`` engages: the recorder wraps the refresh's runner."""
+    refreshes = []
+    fixed = engine._fixed_point
 
-    def recorded_fixed(iterate, m, mask, maxiter, tolerance, *rest):
+    def recorded_fixed(iterate, m, mask, maxiter, tolerance, damping=0.0,
+                       members=1, run=engine._Eager):
         refreshes.append((tolerance, []))
-        open_.append(refreshes[-1][1])
-        try:
-            return fixed(iterate, m, mask, maxiter, tolerance, *rest)
-        finally:
-            open_.pop()
+        return fixed(iterate, m, mask, maxiter, tolerance, damping, members,
+                     _Recorded(run, refreshes[-1][1]))
 
-    def recorded_distance(*args, **kwargs):
-        out = measure(*args, **kwargs)
-        if open_:
-            open_[-1].append(out.detach().cpu().numpy())
-        return out
-
-    engine._fixed_point, engine._message_distance = (recorded_fixed,
-                                                     recorded_distance)
+    engine._fixed_point = recorded_fixed
     try:
         yield refreshes
     finally:
-        engine._fixed_point, engine._message_distance = fixed, measure
+        engine._fixed_point = fixed
 
 
 def bp_flip(one, other, member=None):
@@ -4100,9 +4232,10 @@ def main() -> int:
         del seen
         done(name)
 
-    # 5. absolute physics; the update's CUDA graphs against the eager update
+    # 5. absolute physics; the update's and BP's CUDA graphs against eager runs
     physics_check(tt, dev)
     su_graphs_line(tt, dev, smi or kind)
+    bp_graphs_line(tt, dev, smi or kind)
     done("physics")
 
     # 6-7. the rolled headline and the bond observables on its state
@@ -4344,6 +4477,13 @@ if __name__ == "__main__":
         import tensornetworkquantumsimulator_torch as _tt
 
         print(json.dumps(su_graphs_line(_tt, _tt.select_device("cuda"),
+                                        card_line())), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--bp-graphs"]:
+        sys.path.insert(0, str(REPO))
+        import tensornetworkquantumsimulator_torch as _tt
+
+        print(json.dumps(bp_graphs_line(_tt, _tt.select_device("cuda"),
                                         card_line())), flush=True)
         sys.exit(0)
     sys.exit(main())

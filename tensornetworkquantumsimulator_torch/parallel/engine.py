@@ -26,7 +26,8 @@ On a CUDA device every matmul runs in full float32 (no TF32), as the
 reference runs every einsum at ``Precision.HIGHEST``:
 :func:`tensornetworkquantumsimulator_torch.select_device` sets that.  There,
 on a route that reads nothing back to the host, the colour-group update
-replays as CUDA graphs (``su_graphs``).
+replays as CUDA graphs (``su_graphs``), and so does each BP sweep between
+its host reads (``bp_graphs``).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from .cuda_linalg import (
     library_qr,
     roots_kernel_supported,
 )
-from . import su_graphs
+from . import bp_graphs, su_graphs
 from .structure import BatchedGraphSpec
 
 _LETTERS = string.ascii_lowercase
@@ -410,11 +411,40 @@ def outgoing_messages_einsum(t: torch.Tensor, messages: torch.Tensor,
     return torch.stack(outs, dim=1)  # [V, D, χ, χ]
 
 
-def _outgoing_messages(state: BatchedState) -> torch.Tensor:
+def _k3_route(t: torch.Tensor, messages: torch.Tensor) -> bool:
+    """Whether :func:`_outgoing_messages` takes K3 on these inputs."""
+    if os.environ.get("TNQS_BP_KERNEL", "0") != "1" or t.ndim != 5:
+        return False
+    if torch.is_grad_enabled() and (t.requires_grad or messages.requires_grad):
+        return False
+    from .cuda_bp import bp_kernel_supported
+
+    chi = t.shape[1]
+    return (bp_kernel_supported(3, chi, t.shape[-1], t.dtype, t.shape[0])
+            and all(s == chi for s in t.shape[1:4]))
+
+
+class _Eager:
+    """The default runner of the stretches that BP and the simple update
+    are cut into: each stretch runs as it comes, each input is read where
+    it lies (``bp_graphs`` and ``su_graphs`` replay them as CUDA graphs)."""
+
+    @staticmethod
+    def stretch(_i, fn):
+        return fn()
+
+    @staticmethod
+    def fixed(_name, value):
+        return value
+
+
+def _outgoing_messages(state: BatchedState, run=_Eager) -> torch.Tensor:
     """m_out[u, j]: message u sends through slot j
     (`abstractbeliefpropagationcache.jl:144-177`, batched).
     ``TNQS_BP_KERNEL=1`` routes degree-3 states with equal bond legs
-    through the K3 CUDA kernel chain (``cuda_bp.bp_outgoing_d3``).
+    through the K3 CUDA kernel chain (``cuda_bp.bp_outgoing_d3``), called
+    eagerly on every path; the einsum chain is the stretch ``"m"`` of
+    ``run`` (:class:`_Eager`, or a refresh's replays in ``bp_graphs``).
 
     While autograd records a graph through this call (grad mode on, and
     the tensors or the messages require grad) the einsum chain runs
@@ -425,19 +455,12 @@ def _outgoing_messages(state: BatchedState) -> torch.Tensor:
     calls that reach the kernel."""
     with span("bp.messages"):
         t = state.tensors
-        D = t.ndim - 2
-        recording = torch.is_grad_enabled() and (
-            t.requires_grad or state.messages.requires_grad)
-        if (os.environ.get("TNQS_BP_KERNEL", "0") == "1" and D == 3
-                and not recording):
-            from .cuda_bp import bp_kernel_supported, bp_outgoing_d3
+        if _k3_route(t, state.messages):
+            from .cuda_bp import bp_outgoing_d3
 
-            chi, d = t.shape[1], t.shape[-1]
-            if bp_kernel_supported(D, chi, d, t.dtype, t.shape[0]) and all(
-                s == chi for s in t.shape[1:4]
-            ):
-                return bp_outgoing_d3(t, state.messages)
-        return outgoing_messages_einsum(t, state.messages)
+            return bp_outgoing_d3(t, state.messages)
+        t, m = run.fixed("t", t), run.fixed("m", state.messages)
+        return run.stretch("m", lambda: (outgoing_messages_einsum(t, m),))[0]
 
 
 def _normalize_messages(m, mask, hermitize_: bool = True):
@@ -452,15 +475,24 @@ def _normalize_messages(m, mask, hermitize_: bool = True):
     return torch.where(mask[..., None, None], m, eye)
 
 
+def _incoming(m_out, nbr, nbr_slot, mask):
+    """Stretch ``"n1"`` of a sweep: the message INTO v through slot k was
+    sent by nbr[v,k] via nbr_slot[v,k]; gathered [V, D, χ, χ], normalized."""
+    return (_normalize_messages(m_out[nbr, nbr_slot], mask),)
+
+
 def bp_iteration(spec: BatchedGraphSpec, state: BatchedState,
-                 tables: GraphTables | None = None) -> torch.Tensor:
-    """One synchronous sweep: every directed message updated at once."""
+                 tables: GraphTables | None = None,
+                 run=_Eager) -> torch.Tensor:
+    """One synchronous sweep: every directed message updated at once
+    (``run`` as for :func:`_outgoing_messages`)."""
     if tables is None:
         tables = graph_tables(spec, state.tensors.device)
-    m_out = _outgoing_messages(state)
-    # the message INTO v through slot k was sent by nbr[v,k] via nbr_slot[v,k]
-    gathered = m_out[tables.nbr, tables.nbr_slot]  # [V, D, χ, χ]
-    return _normalize_messages(gathered, tables.mask)
+    m_out = _outgoing_messages(state, run)
+    fn = functools.partial(_incoming, run.fixed("m_out", m_out),
+                           *(run.fixed(name, x) for name, x in zip(
+                               GraphTables._fields, tables)))
+    return run.stretch("n1", fn)[0]
 
 
 def _message_distance(a, b, mask, members: int = 1):
@@ -484,8 +516,27 @@ def default_batched_tolerance(dtype) -> float:
     return 1e-8
 
 
+def _sweep_end(m, new, active, mask, tolerance, damping, members):
+    """Stretch ``"n2"`` of a sweep: damping, the distance to the last
+    messages and, with ``members`` > 1, the freeze of the members already
+    stopped.  Returns (messages, active members, go on, the [members]
+    distances), the distances for whoever wraps the runner (``chip_smoke``
+    records each member's stop from them)."""
+    if damping > 0:
+        new = _normalize_messages((1 - damping) * new + damping * m,
+                                  mask, hermitize_=False)
+    dist = _message_distance(m, new, mask, members)
+    go = dist > tolerance
+    if members == 1:
+        return new, active, go, dist
+    keep = active[:, None].expand(members, m.shape[0] // members)
+    m = torch.where(keep.reshape(-1, 1, 1, 1), new, m)
+    active = active & go
+    return m, active, active.any(), dist
+
+
 def _fixed_point(iterate, m, mask, maxiter, tolerance, damping,
-                 members: int = 1):
+                 members: int = 1, run=_Eager):
     """Iterate ``m ← iterate(m)`` (optionally damped) while the mean
     message change exceeds ``tolerance``, at most ``maxiter`` sweeps.
 
@@ -495,28 +546,25 @@ def _fixed_point(iterate, m, mask, maxiter, tolerance, damping,
     measurement).  With ``members`` > 1 the rows of ``m`` are that many
     ensemble members' messages stacked, and each member stops on its own
     distance, as ``jax.vmap`` of the while loop does: a member whose
-    distance fell to the tolerance is frozen while the others go on."""
-    rows = m.shape[0] // members
+    distance fell to the tolerance is frozen while the others go on.
+    ``run`` runs the sweep's last stretch (:func:`_sweep_end`) as for
+    :func:`_outgoing_messages`."""
     active = torch.ones(members, dtype=torch.bool, device=m.device)
     for _ in range(maxiter):
         with span("bp.sweep"):
+            # the last sweep's outputs, copied in before any stretch replays
+            m, active = run.fixed("m", m), run.fixed("active", active)
             new = iterate(m)
-            if damping > 0:
-                new = _normalize_messages((1 - damping) * new + damping * m,
-                                          mask, hermitize_=False)
-            go = _message_distance(m, new, mask, members) > tolerance
             _BP_SWEEPS.add()
             _MEMBER_SWEEPS_COMPUTED.add(members)
             if members > 1:
                 # on the device: the members this sweep still moves
                 _MEMBER_SWEEPS_ACTIVE.add_device(active)
-                keep = active.repeat_interleave(rows)[:, None, None, None]
-                m = torch.where(keep, new, m)
-                active = active & go
-                go = active.any()
             else:
                 _MEMBER_SWEEPS_ACTIVE.add()
-                m = new
+            m, active, go, _ = run.stretch("n2", functools.partial(
+                _sweep_end, m, new, active, run.fixed("mask", mask),
+                tolerance, damping, members))
             with span("bp.converge_read"):
                 stop = not bool(go)
             _CONVERGE_READS.add()
@@ -537,19 +585,23 @@ def bp_update(
     """Flooding BP to the fixed point (tolerance on the mean message change,
     `abstractbeliefpropagationcache.jl:198-222`).  ``members`` > 1 runs an
     ensemble folded into the vertex axis (``tables`` then hold its offset
-    neighbour tables), each member to its own stopping point."""
+    neighbour tables), each member to its own stopping point.  On CUDA,
+    outside autograd's recording, the sweeps replay as CUDA graphs
+    (``bp_graphs``); the host still reads the stop once a sweep."""
     with span("bp.update"):
         if tolerance is None:
             tolerance = default_batched_tolerance(state.tensors.dtype)
         if tables is None:
             tables = graph_tables(spec, state.tensors.device)
+        run = bp_graphs.refresh(state, tables, members, damping, tolerance)
 
         def iterate(m):
-            return bp_iteration(spec, state._replace(messages=m), tables)
+            return bp_iteration(spec, state._replace(messages=m), tables,
+                                run)
 
         m = _fixed_point(iterate, state.messages, tables.mask, maxiter,
-                         tolerance, damping, members)
-        return state._replace(messages=m)
+                         tolerance, damping, members, run)
+        return state._replace(messages=run.out(m))
 
 
 # ---------------------------------------------------------------------------
@@ -837,19 +889,6 @@ def _su_rebuild(items, split, q_all, r_all, inv_roots_all, chi,
             results.append((tu_new, tv_new, msg, err_all[sl]))
             off += B
     return results
-
-
-class _Eager:
-    """:func:`_group_core`'s default runner: each stretch runs as it comes,
-    each kernel's output is read where it lies."""
-
-    @staticmethod
-    def stretch(_i, fn):
-        return fn()
-
-    @staticmethod
-    def fixed(_name, value):
-        return value
 
 
 def _group_core(items, gate, chi, cutoff, normalize_tensors, run=_Eager):

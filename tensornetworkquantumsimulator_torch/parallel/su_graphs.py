@@ -109,18 +109,45 @@ class Capture:
         return graph.replay, outs
 
 
-class _Entry:
-    __slots__ = ("calls", "failed", "items", "gate", "statics", "stretches")
+class Entry:
+    """One key's graphs (here and in ``bp_graphs``): its calls so far,
+    whether its capture failed, its fixed buffers and its stretches."""
+
+    __slots__ = ("calls", "failed", "statics", "stretches")
 
     def __init__(self):
         self.calls = 0
         self.failed = False
-        self._drop()
+        self.drop()
 
-    def _drop(self):
+    def drop(self):
+        self.statics = {}  # name -> a fixed buffer a stretch reads
+        self.stretches = {}  # name -> (replay, outputs)
+
+    def refuse(self, what: str, exc: Exception):
+        """A capture of this key raised: drop its graphs and buffers, keep
+        it eager for the rest of the process, and warn."""
+        self.failed = True
+        self.drop()
+        warnings.warn(f"{what}: capture failed, this shape runs eagerly from "
+                      f"now on: {exc!r}", RuntimeWarning, stacklevel=3)
+
+
+class _Entry(Entry):
+    __slots__ = ("items", "gate")
+
+    def drop(self):
+        super().drop()  # statics: K1's and K2's outputs; stretches: S0-S2
         self.items = self.gate = None  # the gathered rows' and gate's buffers
-        self.statics = {}  # K1's and K2's outputs, copied in
-        self.stretches = []  # [(replay, outputs)] of S0, S1, S2
+
+
+def capture(device) -> Capture:
+    """The capturer of ``device``: one memory pool per device, shared by
+    every key's graphs, the update's and BP's (``bp_graphs``)."""
+    cap = _captures.get(device)
+    if cap is None:
+        cap = _captures[device] = Capture(device)
+    return cap
 
 
 def _capturable(device) -> bool:
@@ -146,16 +173,22 @@ def _key(state, group, gate, chi, cutoff, normalize_tensors) -> tuple:
             engine._eigh_alg())
 
 
-def _entry(key) -> _Entry:
-    entry = _cache.get(key)
+def cached(cache: OrderedDict, key, make, limit: int, evictions: Counter):
+    """``cache[key]``, made by ``make()`` where absent, now the most recent
+    key; beyond ``limit`` keys the least recent goes, counted."""
+    entry = cache.get(key)
     if entry is not None:
-        _cache.move_to_end(key)
+        cache.move_to_end(key)
         return entry
-    entry = _cache[key] = _Entry()
-    if len(_cache) > MAX_KEYS:
-        _cache.popitem(last=False)
-        _EVICTIONS.add()
+    entry = cache[key] = make()
+    if len(cache) > limit:
+        cache.popitem(last=False)
+        evictions.add()
     return entry
+
+
+def _entry(key) -> _Entry:
+    return cached(_cache, key, _Entry, MAX_KEYS, _EVICTIONS)
 
 
 def updates(state, group, gate, chi, cutoff, normalize_tensors):
@@ -172,18 +205,11 @@ def updates(state, group, gate, chi, cutoff, normalize_tensors):
             return _run(entry, state, group, gate, chi, cutoff,
                         normalize_tensors, None)
         if entry.calls > 1 and not entry.failed:
-            device = state.tensors.device
-            if device not in _captures:
-                _captures[device] = Capture(device)
             try:
                 return _run(entry, state, group, gate, chi, cutoff,
-                            normalize_tensors, _captures[device])
+                            normalize_tensors, capture(state.tensors.device))
             except Exception as exc:  # noqa: BLE001 - reported, then eager
-                entry.failed = True
-                entry._drop()
-                warnings.warn(f"su_graphs: capture failed, this update shape "
-                              f"runs eagerly from now on: {exc!r}",
-                              RuntimeWarning, stacklevel=2)
+                entry.refuse("su_graphs: the update", exc)
     _EAGER.add()
     return engine._group_core(engine._gather(state, group), gate, chi, cutoff,
                               normalize_tensors)
@@ -200,7 +226,7 @@ class _Replay:
     def stretch(self, i, fn):
         entry = self.entry
         if self.capture is not None:
-            entry.stretches.append(self.capture(fn))
+            entry.stretches[i] = self.capture(fn)
             _CAPTURES.add()
         replay, outs = entry.stretches[i]
         with span("su.graph"):
